@@ -1,0 +1,119 @@
+"""AnimateDiff-style temporal motion module (counterpart of
+hallo_tpu/models/motion.py; reference motion_module.py). Attention runs over
+the frame axis at every spatial site, on (B, T, L, C) with the sinusoidal
+positional encoding added to the normed sequence; ReferenceNet motion-frame
+features are concatenated ahead of the clip on the time axis and sliced off
+afterwards. Parameters follow the reference's
+`temporal_transformer.*` keys; the PE table is computed, not stored."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from hallo_tpu.config import MotionModuleConfig
+from hallo_tpu_torch.models.layers import (
+    FeedForward,
+    GroupNorm,
+    LayerNorm,
+    TemporalSelfAttention,
+    sinusoidal_positions,
+)
+
+
+class TemporalAttention(TemporalSelfAttention):
+    """Frame-axis self-attention with the sinusoidal PE added to its input."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, max_len: int = 32,
+                 use_pe: bool = True):
+        super().__init__(dim, heads, head_dim)
+        self.max_len = max_len
+        self.use_pe = use_pe
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t, c = x.shape[1], x.shape[-1]
+        if self.use_pe:
+            if t > self.max_len:
+                raise ValueError(
+                    f"temporal PE max_len={self.max_len} < sequence length {t} "
+                    "(clip frames + motion frames)"
+                )
+            pe = sinusoidal_positions(self.max_len, c, device=x.device)[:t]
+            x = x + pe[None, :, None, :].to(x.dtype)
+        return super().forward(x)
+
+
+class _TemporalBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, head_dim: int, cfg: MotionModuleConfig):
+        super().__init__()
+        n = len(cfg.attention_block_types)
+        if any(t != "Temporal_Self" for t in cfg.attention_block_types):
+            raise ValueError(f"attention_block_types {cfg.attention_block_types}: "
+                             "the motion module has Temporal_Self blocks only")
+        self.attention_blocks = nn.ModuleList([
+            TemporalAttention(dim, heads, head_dim,
+                              cfg.temporal_position_encoding_max_len,
+                              cfg.temporal_position_encoding)
+            for _ in range(n)
+        ])
+        self.norms = nn.ModuleList([LayerNorm(dim) for _ in range(n)])
+        self.ff = FeedForward(dim)
+        self.ff_norm = LayerNorm(dim)
+
+    def forward(self, hs: torch.Tensor) -> torch.Tensor:
+        for attn, norm in zip(self.attention_blocks, self.norms):
+            hs = hs + attn(norm(hs))
+        return hs + self.ff(self.ff_norm(hs))
+
+
+class _TemporalTransformer(nn.Module):
+    def __init__(self, channels: int, cfg: MotionModuleConfig):
+        super().__init__()
+        heads = cfg.num_attention_heads
+        head_dim = channels // heads // cfg.temporal_attention_dim_div
+        inner = heads * head_dim
+        self.norm = GroupNorm(cfg.norm_num_groups, channels, eps=1e-6)
+        self.proj_in = nn.Linear(channels, inner)
+        self.transformer_blocks = nn.ModuleList([
+            _TemporalBlock(inner, heads, head_dim, cfg)
+            for _ in range(cfg.num_transformer_block)
+        ])
+        self.proj_out = nn.Linear(inner, channels)
+        nn.init.zeros_(self.proj_out.weight)
+        nn.init.zeros_(self.proj_out.bias)
+
+
+class MotionModule(nn.Module):
+    """GN -> proj_in -> temporal blocks -> zero-init proj_out + residual."""
+
+    def __init__(self, channels: int, cfg: MotionModuleConfig):
+        super().__init__()
+        self.temporal_transformer = _TemporalTransformer(channels, cfg)
+
+    def forward(self, x: torch.Tensor, motion_feats: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """x (B, F, C, H, W); motion_feats (B, M, L, C) per-site ReferenceNet
+        motion-frame features, or None."""
+        tt = self.temporal_transformer
+        b, f, c, h, w = x.shape
+        l = h * w
+
+        def prep(z: torch.Tensor) -> torch.Tensor:
+            # (B, T, C, H, W) -> (B, T, L, C'): per-frame GN + proj_in
+            zn = tt.norm(z.flatten(0, 1)).unflatten(0, (b, -1))
+            return tt.proj_in(zn.flatten(3).transpose(2, 3))
+
+        if motion_feats is not None and motion_feats.shape[1] == 0:
+            motion_feats = None
+        hs = prep(x)
+        m = 0
+        if motion_feats is not None:
+            m = motion_feats.shape[1]
+            mf = motion_feats.to(x.dtype).transpose(2, 3).unflatten(3, (h, w))
+            hs = torch.cat([prep(mf), hs], dim=1)
+        for block in tt.transformer_blocks:
+            hs = block(hs)
+        hs = tt.proj_out(hs[:, m:])  # (B, F, L, C)
+        return x + hs.transpose(2, 3).unflatten(3, (h, w))

@@ -1,0 +1,167 @@
+"""Encoder/mid/decoder stages of the denoising video UNet (counterpart of
+hallo_tpu/models/unet_blocks.py; reference unet_3d_blocks.py). Per layer:
+resnet -> spatial attention (ref-feature KV injection) -> audio attention ->
+motion module. Video tensors are (B, F, C, H, W). The motion module takes
+the ReferenceNet motion-frame features itself (hallo_tpu's
+`fuse_motion_frames`: concatenated on the time axis, sliced back off)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from hallo_tpu.config import MotionModuleConfig
+from hallo_tpu_torch.models.motion import MotionModule
+from hallo_tpu_torch.models.resnet import Downsample, ResnetBlock, Upsample
+from hallo_tpu_torch.models.transformer_spatial import AudioTransformer, SpatialTransformer
+
+Masks = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+@dataclasses.dataclass
+class Conditioning:
+    """What every layer of one denoiser call sees besides its own features:
+    context (B, T, Dc) identity tokens; audio_context (B, F, T, Da); masks
+    (full, face, lip), each (B*F, L) at this block's depth; motion_scale
+    (3,); uncond_mask (B,); cfg_split: the batch is [uncond | cond]."""
+
+    context: torch.Tensor
+    audio_context: Optional[torch.Tensor] = None
+    masks: Masks = None
+    motion_scale: Optional[torch.Tensor] = None
+    uncond_mask: Optional[torch.Tensor] = None
+    cfg_split: bool = False
+
+    def at_depth(self, masks: Masks) -> "Conditioning":
+        return dataclasses.replace(self, masks=masks)
+
+
+class _Layers(nn.Module):
+    """One UNet stage: `n` x (resnet [-> attention -> audio] [-> motion])."""
+
+    def __init__(
+        self,
+        in_channels: Sequence[int],  # per layer, skip concat included
+        out_channels: int,
+        temb_channels: int,
+        heads: int,
+        groups: int,
+        eps: float,
+        inflated: bool,
+        context_dim: int,
+        attention: bool,
+        audio_inner: Optional[Sequence[int]],  # per layer; None: no audio
+        audio_dim: int,
+        hierarchical: bool,
+        motion_config: Optional[MotionModuleConfig],
+        n_attn: Optional[int] = None,  # layers with attention/audio/motion
+    ):
+        super().__init__()
+        n = len(in_channels) if n_attn is None else n_attn
+        self.resnets = nn.ModuleList([
+            ResnetBlock(c, out_channels, temb_channels, groups, eps, inflated)
+            for c in in_channels
+        ])
+        if attention:
+            self.attentions = nn.ModuleList([
+                SpatialTransformer(out_channels, heads, out_channels // heads,
+                                   context_dim, groups)
+                for _ in range(n)
+            ])
+        if audio_inner is not None:
+            self.audio_modules = nn.ModuleList([
+                AudioTransformer(out_channels, heads, inner, audio_dim, groups,
+                                 hierarchical)
+                for inner in audio_inner
+            ])
+        if motion_config is not None:
+            self.motion_modules = nn.ModuleList([
+                MotionModule(out_channels, motion_config) for _ in range(n)
+            ])
+
+    def layer(self, i, x, temb, cond, ref_feature, motion_feature):
+        x = self.resnets[i](x, temb)
+        if hasattr(self, "attentions"):
+            x = self.attentions[i](
+                x, ref_feature, cond.context, cond.uncond_mask, cond.cfg_split
+            )
+        if hasattr(self, "audio_modules") and cond.audio_context is not None:
+            x = self.audio_modules[i](
+                x, cond.audio_context,
+                *(cond.masks if cond.masks is not None else (None,) * 3),
+                motion_scale=cond.motion_scale, cfg_split=cond.cfg_split,
+            )
+        if hasattr(self, "motion_modules"):
+            x = self.motion_modules[i](x, motion_feature)
+        return x
+
+
+class DownBlock(_Layers):
+    """CrossAttnDownBlock / DownBlock: returns (x, skip states)."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_layers: int,
+                 add_downsample: bool, **kw):
+        ins = [in_channels] + [out_channels] * (num_layers - 1)
+        super().__init__(ins, out_channels, **kw)
+        if add_downsample:
+            self.downsamplers = nn.ModuleList([Downsample(out_channels)])
+
+    def forward(self, x, temb, cond: "Conditioning", ref_features=None,
+                motion_features=None):
+        states = []
+        for i in range(len(self.resnets)):
+            x = self.layer(
+                i, x, temb, cond,
+                None if ref_features is None else ref_features[i],
+                None if motion_features is None else motion_features[i],
+            )
+            states.append(x)
+        if hasattr(self, "downsamplers"):
+            x = self.downsamplers[0](x)
+            states.append(x)
+        return x, states
+
+
+class MidBlock(_Layers):
+    """resnets_0 -> attention -> audio -> motion -> resnets_1."""
+
+    def __init__(self, channels: int, **kw):
+        super().__init__([channels, channels], channels, n_attn=1, **kw)
+
+    def forward(self, x, temb, cond: "Conditioning", ref_features=None,
+                motion_features=None):
+        x = self.layer(
+            0, x, temb, cond,
+            None if ref_features is None else ref_features[0],
+            None if motion_features is None else motion_features[0],
+        )
+        return self.resnets[1](x, temb)
+
+
+class UpBlock(_Layers):
+    """CrossAttnUpBlock / UpBlock: concatenates one skip per layer."""
+
+    def __init__(self, prev_channels: int, out_channels: int,
+                 skip_channels: Sequence[int], add_upsample: bool, **kw):
+        ins = [(prev_channels if i == 0 else out_channels) + s
+               for i, s in enumerate(skip_channels)]
+        super().__init__(ins, out_channels, **kw)
+        if add_upsample:
+            self.upsamplers = nn.ModuleList([Upsample(out_channels)])
+
+    def forward(self, x, skips, temb, cond: "Conditioning", ref_features=None,
+                motion_features=None):
+        skips = list(skips)
+        for i in range(len(self.resnets)):
+            x = torch.cat([x, skips.pop()], dim=2)
+            x = self.layer(
+                i, x, temb, cond,
+                None if ref_features is None else ref_features[i],
+                None if motion_features is None else motion_features[i],
+            )
+        if hasattr(self, "upsamplers"):
+            x = self.upsamplers[0](x)
+        return x

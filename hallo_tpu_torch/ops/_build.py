@@ -1,0 +1,114 @@
+"""Build the CUDA kernels in `hallo_tpu_torch/csrc/` and bind them with ctypes.
+
+Each `csrc/<name>.cu` has a plain C interface. It is compiled with nvcc for
+sm_90a (Hopper) into `hallo_tpu_torch/_build/<name>-<hash>.so` at its first
+use, where the hash covers the source and the flags, so an edited kernel is
+rebuilt and an unchanged one is loaded as it is. Nothing here runs at import
+time: the CPU tests import every module of the package without a compiler.
+
+A build that fails raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C signatures of the entry points, by source name.
+SIGNATURES = {
+    "flash_fwd": ("hallo_flash_fwd", [_P] * 5 + [_I] * 5 + [_LL] * 13 + [_F, _P]),
+    "temporal_attn": (
+        "hallo_temporal_attn", [_P] * 4 + [_I] * 6 + [_LL] * 3 + [_F, _P],
+    ),
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+build_log: Dict[str, str] = {}  # nvcc's output (ptxas register/smem report)
+build_seconds: Dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def _target(name: str) -> tuple:
+    src = os.path.join(_CSRC, f"{name}.cu")
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _start(name: str):
+    src, out = _target(name)
+    if os.path.exists(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, out, time.perf_counter()
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out, t0 = started
+    log, _ = proc.communicate()
+    build_log[name] = log
+    build_seconds[name] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> None:
+    """Compile the named kernels (in parallel) unless already built."""
+    names = list(names)
+    with _lock:
+        started = {n: _start(n) for n in names}
+        for n in names:
+            _finish(n, started[n])
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built at first use."""
+    with _lock:
+        if name in _libs:
+            return _libs[name]
+        _finish(name, _start(name))
+        _, out = _target(name)
+        handle = ctypes.CDLL(out)
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(handle, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = handle
+        return handle
+
+
+def call(name: str, *args) -> None:
+    """Launch the entry point of `csrc/<name>.cu`; raise on a CUDA error."""
+    fn_name, _ = SIGNATURES[name]
+    err = getattr(lib(name), fn_name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: cudaError {err}")

@@ -1,0 +1,101 @@
+"""Model factory (counterpart of hallo_tpu/utils/factory.py): the full
+SD-1.5-based configuration, or the tiny one the CPU tests use. The `TINY_*`
+widths are the JAX package's (which imports jax, so they are restated here;
+a test holds them equal)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from hallo_tpu.config import (
+    AudioProjConfig,
+    FaceLocatorConfig,
+    ImageProjConfig,
+    MotionModuleConfig,
+    VAEConfig,
+    denoising_unet_config,
+    reference_unet_config,
+)
+from hallo_tpu_torch.pipelines.face_animate import HalloModels
+
+TINY_UNET_KW = dict(
+    block_out_channels=(8, 16, 16, 16),
+    layers_per_block=1,
+    num_attention_heads=2,
+    cross_attention_dim=12,
+    norm_num_groups=4,
+    audio_attention_dim=6,
+    motion_module=MotionModuleConfig(
+        num_attention_heads=2,
+        temporal_position_encoding_max_len=8,
+        norm_num_groups=4,
+    ),
+)
+
+TINY_AUX = dict(
+    vae_config=VAEConfig(
+        block_out_channels=(8, 8, 8, 8), layers_per_block=1, norm_num_groups=4
+    ),
+    face_locator_config=FaceLocatorConfig(
+        conditioning_embedding_channels=8, block_out_channels=(4, 4, 4, 4)
+    ),
+    image_proj_config=ImageProjConfig(cross_attention_dim=12, clip_embeddings_dim=16),
+    audio_proj_config=AudioProjConfig(
+        seq_len=3, blocks=2, channels=4, intermediate_dim=8, output_dim=6,
+        context_tokens=3,
+    ),
+)
+
+
+def build_models(
+    scale: str = "full",
+    device: torch.device = torch.device("cpu"),
+    dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+) -> HalloModels:
+    """Random-initialised models from `seed`, built on `device` in `dtype`.
+    "full" is the production configuration; "tiny" the test widths."""
+    if scale == "tiny":
+        kw, aux = TINY_UNET_KW, TINY_AUX
+    elif scale == "full":
+        kw, aux = {}, {}
+    else:
+        raise ValueError(scale)
+    return HalloModels.create(
+        reference_unet_config(**kw), denoising_unet_config(**kw),
+        device=device, dtype=dtype, seed=seed, **aux,
+    )
+
+
+def dummy_clip_inputs(
+    models: HalloModels,
+    height: int,
+    width: int,
+    clip_length: int,
+    batch: int = 1,
+    seed: int = 0,
+) -> Dict[str, Any]:
+    """Random `FaceAnimatePipeline.__call__` inputs (numpy) of the right
+    shapes: one clip of audio windows."""
+    ip = models.image_proj.config
+    ap = models.audio_proj.config
+    rng = np.random.default_rng(seed)
+    hl, wl = height // 8, width // 8
+    return dict(
+        ref_image=rng.uniform(-1, 1, size=(batch, height, width, 3)).astype(np.float32),
+        audio_windows=rng.normal(
+            size=(clip_length, ap.seq_len, ap.blocks, ap.channels)
+        ).astype(np.float32),
+        face_emb=rng.normal(size=(batch, ip.clip_embeddings_dim)).astype(np.float32),
+        face_region=np.ones((batch, height, width, 3), np.float32),
+        masks=tuple(
+            tuple(
+                np.ones((batch, (hl // 2**d) * (wl // 2**d)), np.float32)
+                for _ in range(3)
+            )
+            for d in range(4)
+        ),
+    )
