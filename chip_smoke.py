@@ -7,14 +7,21 @@
 Phases, each synchronised so that a device fault surfaces where it happened:
 
 1. preflight: the card's name and power limit, and the kernels' build
-   (nvcc, sm_90a) from `hallo_tpu_torch/csrc/`;
+   (nvcc, sm_90a, one process per source, all started together) from
+   `hallo_tpu_torch/csrc/`;
 2. every hand-written kernel against its plain PyTorch version at the main
-   path's shapes, in bf16, with both times;
-3. the slice: the full-width models (random weights from a seed, bf16) drive
-   `FaceAnimatePipeline.__call__` at 512^2 over 2 clips of 16 frames with 2
-   motion frames, counting each kernel's launches; then the port on the card
-   is held against the same weights and inputs run on the CPU in fp32 at a
-   small size.
+   paths' shapes, with its time, its plain version's, one PyTorch library
+   call's on the same inputs (a yardstick only) and its bound;
+3. the driving audio: the full-width wav2vec2-base (random weights from a
+   seed, fp32) through `AudioProcessor.preprocess` on
+   `examples/driving_audios/1.wav` (3 s), on it tiled 4x (12 s) and, under
+   HALLO_INT8_ATTN=1, 14x (42 s), counting K3's and K6's launches, each held
+   against the same weights on the CPU in fp32;
+4. the slice: the full-width models (random weights from a seed, bf16) drive
+   `FaceAnimatePipeline.__call__` at 512^2 with the windows of 1.wav's
+   embeddings (5 clips of 16 frames, 2 motion frames), counting each
+   kernel's launches; then the port on the card is held against the same
+   weights and inputs run on the CPU in fp32 at a small size.
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`;
@@ -32,16 +39,32 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from hallo_tpu_torch.data.audio_processor import AudioProcessor, load_wav
+from hallo_tpu_torch.models import wav2vec as wav2vec_module
 from hallo_tpu_torch.ops import _build, flash, temporal
-from hallo_tpu_torch.pipelines.face_animate import FaceAnimatePipeline, HalloModels
-from hallo_tpu_torch.utils.factory import build_models, dummy_clip_inputs
+from hallo_tpu_torch.ops.attention import attention_reference
+from hallo_tpu_torch.pipelines.face_animate import (
+    FaceAnimatePipeline, HalloModels, window_audio_embeddings)
+from hallo_tpu_torch.utils.factory import build_models, build_wav2vec, dummy_clip_inputs
 
-# Max abs error of a bf16 kernel against its plain version computed in fp32
-# from the same bf16 inputs (unit-normal q, k, v): the output and the
-# probabilities are rounded to bf16 (8 bits of mantissa) in the kernel, so
-# |o| ~ 1 carries ~4e-3 of rounding, plus the bf16 rounding of P in PV.
+# A kernel against its plain version computed in fp32 from the same inputs
+# (unit-normal q, k, v). The kernels round q, k, v (fp32 I/O: on their way
+# into shared memory), the probabilities and a bf16 output to bf16 (8 bits of
+# mantissa), about 0.4% of each value. Two limits, both must hold:
+# - max abs error KERNEL_ATOL, for an error local to a few rows (at short key
+#   lengths |o| ~ 1, so this is ~2% of a value);
+# - relative L2 error ||kernel - plain|| / ||plain|| KERNEL_RTOL, scaled to
+#   the case's own output: at Lk 8192 a typical |o| is ~sqrt(e / Lk) ~ 0.02,
+#   as small as KERNEL_ATOL, so only this limit sees a dropped key tile
+#   there. Measured on an H100: 1.7e-3 to 3.3e-3 over every case, so the
+#   limit is 3x the largest. Each case with 128 keys or more also reads the
+#   plain version with its first 64 keys dropped against the full one, and
+#   fails unless that planted fault exceeds KERNEL_RTOL (9.0e-2 at Lk 8192,
+#   the smallest, to 0.52 at Lk 304).
 KERNEL_ATOL = 2e-2
+KERNEL_RTOL = 1e-2
 
 # The port on the card (bf16, kernels) against the same weights on the CPU
 # (fp32, plain versions) at a small input: relative L2 error of each output.
@@ -49,18 +72,57 @@ KERNEL_ATOL = 2e-2
 # through the UNets' depth that stays within a few percent.
 SLICE_RTOL = 5e-2
 
+# The audio embeddings on the card (fp32 encoder; the attention kernels
+# round q, k, v and P to bf16) against the same weights on the CPU in fp32
+# with the plain versions (the same int8 quantisation where K6 runs):
+# relative L2 error of the (T, 12, 768) states. Each layer's attention
+# output carries ~0.4% relative bf16 rounding, and with random weights it
+# is a small part of the residual sum it joins (measured on an H100:
+# 1.7e-4 to 2.5e-4 at 3, 12 and 42 s), so the limit is 4x the largest of
+# those. A planted fault, every attention output scaled by 1.03 on the
+# 3-s WAV, must exceed it, or the check is too weak and the phase fails
+# (it read 1.8e-2 on an H100).
+AUDIO_RTOL = 1e-3
+AUDIO_FAULT_SCALE = 1.03
+
+# The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense, at
+# the full 700 W limit): bytes over the memory rate, operations over the
+# tensor-core rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
+
+WAV = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                   "examples", "driving_audios", "1.wav")
+
+# Rows of the kernels' table: the TPU kernel each replaces, and the path
+# whose run counts its launches.
 KERNELS = {
     "flash_fwd_packed": dict(
-        route="cuda", source="hallo_tpu_torch/csrc/flash_fwd.cu",
-        replaces="hallo_tpu/ops/pallas_flash.py:236",
-    ),
-    "flash_fwd": dict(
-        route="cuda", source="hallo_tpu_torch/csrc/flash_fwd.cu",
-        replaces="hallo_tpu/ops/pallas_flash.py:73",
+        tpu="K1", route="cuda", source="hallo_tpu_torch/csrc/flash_fwd.cu",
+        replaces="hallo_tpu/ops/pallas_flash.py:236", launched_by="slice",
     ),
     "temporal_attn": dict(
-        route="cuda", source="hallo_tpu_torch/csrc/temporal_attn.cu",
-        replaces="hallo_tpu/ops/pallas_temporal.py:42",
+        tpu="K2", route="cuda", source="hallo_tpu_torch/csrc/temporal_attn.cu",
+        replaces="hallo_tpu/ops/pallas_temporal.py:42", launched_by="slice",
+    ),
+    "flash_fwd_t": dict(
+        tpu="K3", route="cuda", source="hallo_tpu_torch/csrc/flash_fwd.cu",
+        replaces="hallo_tpu/ops/pallas_flash.py:120", launched_by="audio",
+    ),
+    "flash_fwd": dict(
+        tpu="K4", route="cuda", source="hallo_tpu_torch/csrc/flash_fwd.cu",
+        replaces="hallo_tpu/ops/pallas_flash.py:73", launched_by="slice",
+    ),
+    "flash_int8": dict(
+        tpu="K6", route="cuda", source="hallo_tpu_torch/csrc/flash_int8.cu",
+        replaces="hallo_tpu/ops/pallas_flash.py:177", launched_by="audio",
+    ),
+    # Nothing dispatches K7 in either package: its launches are the kernel
+    # phase's, at its own test cases.
+    "temporal_attn_packed": dict(
+        tpu="K7", route="cuda", source="hallo_tpu_torch/csrc/temporal_attn.cu",
+        replaces="hallo_tpu/ops/pallas_temporal.py:104", launched_by="kernel phase",
     ),
 }
 
@@ -79,7 +141,7 @@ def reset_counts() -> None:
             table[key] = 0
 
 
-def cuda_ms(fn, iters: int = 5) -> float:
+def cuda_ms(fn, iters: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -102,8 +164,8 @@ def preflight() -> str:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    # Stated explicitly: fp32 matmuls and convolutions in full fp32 (the plain
-    # references below); the main path runs in bf16 and is unaffected.
+    # Stated explicitly: fp32 matmuls and convolutions in full fp32 (the
+    # audio path and the plain references below).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("tf32: matmul False, cudnn False")
@@ -118,18 +180,48 @@ def preflight() -> str:
     return smi
 
 
+def bound_ms(bytes_moved: float, bf16_ops: float, int8_ops: float = 0.0):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rates; and which bounds."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = bf16_ops / BF16_OPS_PER_S + int8_ops / INT8_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def kernel_cases(dev):
-    """(kernel, label, kernel fn, plain fn) at the main path's shapes."""
+    """Each case: the table row it feeds, its label, the kernel call, its
+    plain version, one library call computing the same function (timed
+    only), and the case's bytes and operations for the bound."""
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def sdpa(q, k, v, bias=None):
+        mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    def attn_cost(b, h, lq, lk, d, elem, bias, int8=False):
+        """q, k, v read once, o written once (+ an fp32 bias); QK^T and PV."""
+        nbytes = elem * b * h * d * (2 * lq + 2 * lk) + (0 if bias is None else 4 * b * lk)
+        ops = 2.0 * b * h * lq * lk * d
+        return (nbytes, ops, ops) if int8 else (nbytes, 2 * ops, 0.0)
 
     def packed(label, b, lq, lk, c, heads=8, bias=None):
         q, k, v = randn(b, lq, c), randn(b, lk, c), randn(b, lk, c)
-        return ("flash_fwd_packed", label,
-                lambda: flash.flash_attention_packed(q, k, v, heads=heads, bias=bias),
-                lambda: flash.packed_reference(q.float(), k.float(), v.float(), heads, bias))
+
+        def heads_major(t):
+            return t.unflatten(2, (heads, c // heads)).transpose(1, 2)
+
+        return dict(
+            row="flash_fwd_packed", label=label,
+            fn=lambda: flash.flash_attention_packed(q, k, v, heads=heads, bias=bias),
+            plain=lambda: flash.packed_reference(q.float(), k.float(), v.float(), heads, bias),
+            library=sdpa(heads_major(q), heads_major(k), heads_major(v), bias),
+            fault=None if lk < 128 else lambda: flash.packed_reference(
+                q.float(), k[:, 64:].float(), v[:, 64:].float(), heads,
+                None if bias is None else bias[:, 64:]),
+            cost=attn_cost(b, heads, lq, lk, c // heads, 2, bias))
 
     half_masked = torch.zeros(2, 8192, device=dev)
     half_masked[:, 4096:] = flash.MASK_VALUE
@@ -144,50 +236,216 @@ def kernel_cases(dev):
                bias=half_masked),
     ]
     q, k, v = randn(3, 1, 4096, 512), randn(3, 1, 4096, 512), randn(3, 1, 4096, 512)
-    from hallo_tpu_torch.ops.attention import attention_reference
+    cases.append(dict(
+        row="flash_fwd", label="K4 VAE mid d=512 L 4096 B 3",
+        fn=lambda: flash.flash_attention(q, k, v),
+        plain=lambda: attention_reference(q.float(), k.float(), v.float()),
+        library=sdpa(q, k, v),
+        fault=lambda: attention_reference(q.float(), k[:, :, 64:].float(), v[:, :, 64:].float()),
+        cost=attn_cost(3, 1, 4096, 4096, 512, 2, None)))
 
-    cases.append((
-        "flash_fwd", "K4 VAE mid d=512 L 4096 B 3",
-        lambda: flash.flash_attention(q, k, v),
-        lambda: attention_reference(q.float(), k.float(), v.float()),
-    ))
+    # K3: the wav2vec2 self-attention, fp32, through the model's
+    # (B, T, H, d) -> (B, H, T, d) view; T = 304 (12 s of audio), 1056 (42 s).
+    for lq in (304, 1056):
+        q3, k3, v3 = (randn(1, lq, 12, 64, dtype=torch.float32).transpose(1, 2)
+                      for _ in range(3))
+        cases.append(dict(
+            row="flash_fwd_t", label=f"K3 wav2vec2 fp32 B 1 H 12 d 64 L {lq}",
+            fn=(lambda q=q3, k=k3, v=v3: flash.flash_attention(q, k, v)),
+            plain=(lambda q=q3, k=k3, v=v3: attention_reference(q, k, v)),
+            library=sdpa(q3, k3, v3),
+            fault=(lambda q=q3, k=k3, v=v3: attention_reference(q, k[:, :, 64:], v[:, :, 64:])),
+            cost=attn_cost(1, 12, lq, lq, 64, 4, None)))
+
+    # K6: int8 scores at the 42-s audio's shape, fp32 V; plain, half the keys
+    # at MASK_VALUE, ragged Lk.
+    for label, lk, masked in (("plain", 1056, False), ("half the keys at MASK_VALUE", 1056, True),
+                              ("ragged Lk 1050", 1050, False)):
+        q6 = randn(1, 12, 1056, 64, dtype=torch.float32)
+        k6, v6 = (randn(1, 12, lk, 64, dtype=torch.float32) for _ in range(2))
+        bias6 = None
+        if masked:
+            bias6 = torch.zeros(1, lk, device=dev)
+            bias6[:, lk // 2:] = flash.MASK_VALUE
+        cases.append(dict(
+            row="flash_int8", label=f"K6 int8 B 1 H 12 d 64 L 1056, {label}",
+            fn=(lambda q=q6, k=k6, v=v6, b=bias6: flash.flash_attention_int8(q, k, v, bias=b)),
+            plain=(lambda q=q6, k=k6, v=v6, b=bias6: flash.int8_reference(q, k, v, b)),
+            library=sdpa(q6, k6, v6, bias6),
+            fault=(lambda q=q6, k=k6, v=v6, b=bias6: flash.int8_reference(
+                q, k[:, :, 64:], v[:, :, 64:], None if b is None else b[:, 64:])),
+            parts=dict(prelude=(lambda q=q6, k=k6: flash.quantize_int8(q, k, 0.125)),
+                       kernel=(lambda b=bias6, v=v6, qk=flash.quantize_int8(q6, k6, 0.125):
+                               flash.flash_int8_quantized(*qk, v, bias=b))),
+            cost=attn_cost(1, 12, 1056, lk, 64, 4, bias6, int8=True)))
+
+    def frames(row, label, b, f, l, c, heads):
+        tq, tk, tv = randn(b, f, l, c), randn(b, f, l, c), randn(b, f, l, c)
+
+        def per_site(t):  # (B, F, L, C) -> (B*L, H, F, d), made before timing
+            return t.unflatten(3, (heads, c // heads)).permute(0, 2, 3, 1, 4).reshape(
+                b * l, heads, f, c // heads)
+
+        return dict(
+            row=row, label=label,
+            fn=lambda: temporal.temporal_attention(tq, tk, tv, heads=heads),
+            plain=lambda: temporal.temporal_reference(tq.float(), tk.float(), tv.float(), heads),
+            library=sdpa(per_site(tq), per_site(tk), per_site(tv)),
+            cost=(4 * 2 * b * f * l * c, 4.0 * b * l * c * f * f, 0.0))
+
     for label, b, f, l, c in (
         ("K2 F 18 L 4096 C 320", 2, 18, 4096, 320),
         ("K2 F 16 L 4096 C 320 (level 0 without motion frames)", 2, 16, 4096, 320),
         ("K2 F 18 L 256 C 1280 d=160", 2, 18, 256, 1280),
         ("K2 F 17 L 1024 C 640 (any other frame count)", 2, 17, 1024, 640),
     ):
-        tq, tk, tv = randn(b, f, l, c), randn(b, f, l, c), randn(b, f, l, c)
-        cases.append((
-            "temporal_attn", label,
-            (lambda tq=tq, tk=tk, tv=tv: temporal.temporal_attention(tq, tk, tv, heads=8)),
-            (lambda tq=tq, tk=tk, tv=tv: temporal.temporal_reference(
-                tq.float(), tk.float(), tv.float(), 8)),
-        ))
+        cases.append(frames("temporal_attn", label, b, f, l, c, 8))
+    # K7's own test cases (tests/test_pallas_temporal.py), (B, F, heads, d, L)
+    for b, f, heads, d, l in ((1, 6, 2, 8, 256), (2, 5, 2, 16, 200)):
+        cases.append(frames("temporal_attn_packed", f"K7 B {b} F {f} heads {heads} d {d} L {l}",
+                            b, f, l, heads * d, heads))
     return cases
 
 
 def phase_kernels(dev) -> dict:
-    """Each kernel vs its plain version; returns {kernel: stats of its first
-    (main-path) case, with the worst error over all its cases}."""
+    """Each kernel vs its plain version; returns {row: stats of its first
+    (main-path) case, with the worst error over all its cases, and the
+    launches its cases made}."""
     table = {}
-    for kernel, label, fn, plain in kernel_cases(dev):
-        got = fn().float()
-        want = plain().float()
+    for case in kernel_cases(dev):
+        label = case["label"]
+        before = sum(launch_counts().values())
+        got = case["fn"]().float()
+        want = case["plain"]().float()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
+        rel = ((got - want).norm() / want.norm()).item()
         if not torch.isfinite(got).all():
             raise RuntimeError(f"{label}: non-finite kernel output")
-        ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
-        log(f"{label}: max_abs_err {err:.3e} (atol {KERNEL_ATOL}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        if not err <= KERNEL_ATOL:
-            raise RuntimeError(f"{label}: kernel disagrees with plain version ({err})")
-        row = table.setdefault(kernel, dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms))
+        fault_rel = None
+        if case.get("fault") is not None:
+            fault_rel = ((case["fault"]().float() - want).norm() / want.norm()).item()
+        ms, plain_ms = cuda_ms(case["fn"]), cuda_ms(case["plain"])
+        library_ms = cuda_ms(case["library"])
+        launched = sum(launch_counts().values()) - before
+        b_ms, b_by = bound_ms(*case["cost"])
+        log(f"{label}: max_abs_err {err:.3e} (atol {KERNEL_ATOL}) rel_err {rel:.3e} "
+            f"(rtol {KERNEL_RTOL}) |plain| max {want.abs().max().item():.3e} "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        if fault_rel is not None:
+            log(f"  planted fault, first 64 keys dropped: rel_err {fault_rel:.3e}")
+        for part, part_fn in case.get("parts", {}).items():
+            log(f"  {part} alone: {cuda_ms(part_fn):.4f} ms")
+        if not (err <= KERNEL_ATOL and rel <= KERNEL_RTOL):
+            raise RuntimeError(f"{label}: kernel disagrees with plain version "
+                               f"(max abs {err}, relative {rel})")
+        if fault_rel is not None and not fault_rel > KERNEL_RTOL:
+            raise RuntimeError(f"{label}: the check misses a dropped key tile ({fault_rel})")
+        row = table.setdefault(case["row"], dict(
+            max_abs_err=0.0, rel_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=b_ms, bound_by=b_by, phase_launches=0))
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["rel_err"] = max(row["rel_err"], rel)
+        row["phase_launches"] += launched
         del got, want
         torch.cuda.empty_cache()
     return table
+
+
+def rel_err(got, want) -> float:
+    got = torch.as_tensor(got).float().cpu()
+    want = torch.as_tensor(want).float().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def phase_audio(dev, out_dir: str) -> dict:
+    """wav2vec2-base at full width through `AudioProcessor.preprocess` on the
+    card, at three lengths of 1.wav, each held against the same weights on
+    the CPU in fp32; K3 and K6 counted per run."""
+    t0 = time.perf_counter()
+    model = build_wav2vec("full", device=dev, seed=0)
+    state = model.state_dict()
+    proc = AudioProcessor(wav2vec_state_dict=state, device=dev)
+    cpu = AudioProcessor(wav2vec_state_dict={k: v.cpu() for k, v in state.items()},
+                         device="cpu")
+    del model, state
+    torch.cuda.synchronize()
+    log(f"wav2vec2-base (fp32) on the card and on the CPU: {time.perf_counter() - t0:.1f} s")
+
+    data, sr = load_wav(WAV)
+    os.makedirs(out_dir, exist_ok=True)
+    from scipy.io import wavfile
+
+    runs = []
+    for tiles, int8 in ((1, False), (4, False), (14, True)):
+        path = WAV
+        if tiles > 1:
+            path = os.path.join(out_dir, f"1_x{tiles}.wav")
+            wavfile.write(path, sr, np.tile(data, tiles).astype(np.float32))
+        runs.append((tiles, int8, path))
+
+    out = dict(counts={k: 0 for k in launch_counts()})
+    saved = os.environ.get("HALLO_INT8_ATTN")
+    for tiles, int8, path in runs:
+        seconds = len(data) * tiles / sr
+        want_len = int(np.ceil(seconds * 25))
+        padded = -(-want_len // 16) * 16
+        os.environ["HALLO_INT8_ATTN"] = "1" if int8 else "0"
+        try:
+            # warm-up at this length (cuDNN's choice for new conv shapes,
+            # allocator growth), so that the timed call is a warm one
+            proc.preprocess(path, clip_length=16)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            emb, length = proc.preprocess(path, clip_length=16)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            counts = launch_counts()
+            t0 = time.perf_counter()
+            ref, _ = cpu.preprocess(path, clip_length=16)
+            cpu_s = time.perf_counter() - t0
+        finally:
+            if saved is None:
+                os.environ.pop("HALLO_INT8_ATTN", None)
+            else:
+                os.environ["HALLO_INT8_ATTN"] = saved
+        err = rel_err(emb, ref)
+        label = f"audio {seconds:.1f} s ({'HALLO_INT8_ATTN=1' if int8 else 'bf16 scores'})"
+        log(f"{label}: emb {emb.shape}, audio_length {length}, card {card_s:.4f} s, "
+            f"CPU fp32 {cpu_s:.2f} s, rel_err {err:.3e} (rtol {AUDIO_RTOL}), launches {counts}")
+        if emb.shape != (padded, 12, 768) or length != want_len:
+            raise RuntimeError(f"{label}: emb {emb.shape}, length {length}; "
+                               f"want ({padded}, 12, 768), {want_len}")
+        if not np.isfinite(emb).all():
+            raise RuntimeError(f"{label}: non-finite embeddings")
+        if not err <= AUDIO_RTOL:
+            raise RuntimeError(f"{label}: card disagrees with the CPU fp32 reference ({err})")
+        k3, k6 = counts["flash_fwd_t"], counts["flash_int8"]
+        if (k3, k6) != ((0, 12) if int8 else (12, 0)):
+            raise RuntimeError(f"{label}: K3 launched {k3}, K6 {k6} times in one forward")
+        for key, n in counts.items():
+            out["counts"][key] += n
+        if tiles == 1:
+            out.update(emb=emb, audio_length=length, ref=ref)
+
+    # The planted fault: every attention output scaled by AUDIO_FAULT_SCALE
+    # on the 3-s WAV must fail the check above.
+    real = wav2vec_module.dot_product_attention
+    wav2vec_module.dot_product_attention = (
+        lambda *a, **kw: real(*a, **kw) * AUDIO_FAULT_SCALE)
+    try:
+        faulty, _ = proc.preprocess(WAV, clip_length=16)
+    finally:
+        wav2vec_module.dot_product_attention = real
+    fault_err = rel_err(faulty, out.pop("ref"))
+    log(f"planted fault, attention output x {AUDIO_FAULT_SCALE} on 3.0 s: "
+        f"rel_err {fault_err:.3e} (rtol {AUDIO_RTOL})")
+    if not fault_err > AUDIO_RTOL:
+        raise RuntimeError(f"the audio check misses an attention output off by "
+                           f"{AUDIO_FAULT_SCALE - 1:.0%} ({fault_err})")
+    return out
 
 
 def on_cpu_fp32(models: HalloModels, scale: str) -> HalloModels:
@@ -198,11 +456,6 @@ def on_cpu_fp32(models: HalloModels, scale: str) -> HalloModels:
     for name, module in cpu.modules().items():
         module.to_empty(device="cpu").load_state_dict(host[name], strict=True)
     return cpu
-
-
-def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    got, want = got.float().cpu(), want.float().cpu()
-    return ((got - want).norm() / want.norm()).item()
 
 
 def phase_reference(models: HalloModels, dev, scale: str = "full") -> dict:
@@ -259,34 +512,34 @@ def phase_reference(models: HalloModels, dev, scale: str = "full") -> dict:
     return errs
 
 
-def phase_slice(dev, steps: int) -> dict:
-    """Full-width models, 512^2, 2 clips of 16 frames + 2 motion frames."""
+def phase_slice(dev, steps: int, audio_emb: np.ndarray, audio_length: int) -> dict:
+    """Full-width models, 512^2, driven by the windows of 1.wav's embeddings:
+    clips of 16 frames + 2 motion frames."""
     t0 = time.perf_counter()
     models = build_models("full", device=dev, dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for mod in models.modules().values() for p in mod.parameters())
     log(f"build_models(full, bf16): {time.perf_counter() - t0:.1f} s, {n_params} parameters")
     h = w = 512
-    clip, motion_frames, clips = 16, 2, 2
+    clip, motion_frames = 16, 2
     pipe = FaceAnimatePipeline(models, num_inference_steps=steps, clip_length=clip,
                                n_motion_frames=motion_frames)
     inputs = dummy_clip_inputs(models, h, w, clip, batch=1, seed=0)
-    rng = np.random.default_rng(1)
-    inputs["audio_windows"] = rng.normal(
-        size=(clips * clip,) + inputs["audio_windows"].shape[1:]).astype(np.float32)
+    inputs["audio_windows"] = window_audio_embeddings(audio_emb, margin=2)
+    clips = inputs["audio_windows"].shape[0] // clip
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     timings: dict = {}
     t0 = time.perf_counter()
-    video = pipe(**inputs, seed=0, timings=timings)
+    video = pipe(**inputs, seed=0, audio_length=audio_length, timings=timings)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     steps_s = timings["denoise_step"]
-    log(f"slice: {clips} clips x {clip} frames at {h}x{w}, {steps} DDIM steps, "
+    log(f"slice: {clips} clips x {clip} frames at {h}x{w} from 1.wav, {steps} DDIM steps, "
         f"{total:.3f} s total")
     per_clip = [sum(timings[k][c] for k in ("vae_encode", "conditioning", "vae_decode"))
                 + sum(steps_s[c * steps:(c + 1) * steps]) for c in range(clips)]
@@ -299,16 +552,16 @@ def phase_slice(dev, steps: int) -> dict:
     log(f"peak device memory: {peak / 2**30:.3f} GiB")
     log(f"kernel launches in the slice: {counts}")
 
-    if video.shape != (1, clips * clip, h, w, 3):
-        raise RuntimeError(f"video shape {video.shape}")
+    if video.shape != (1, audio_length, h, w, 3):
+        raise RuntimeError(f"video shape {video.shape}, want {audio_length} frames")
     if not np.isfinite(video).all():
         raise RuntimeError("non-finite video")
     motion = np.abs(np.diff(video[0], axis=0)).mean()
-    log(f"mean |frame difference|: {motion:.5f}")
+    log(f"video: {video.shape[1]} frames, mean |frame difference|: {motion:.5f}")
     if not motion > 0:
         raise RuntimeError("video does not vary over time")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in ("flash_fwd_packed", "temporal_attn", "flash_fwd"):
+        if counts[name] <= 0:
             raise RuntimeError(f"kernel {name} was not launched by the slice")
     return dict(models=models, counts=counts, pipe=pipe, inputs=inputs)
 
@@ -357,15 +610,23 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     table = phase_kernels(dev)
     torch.cuda.synchronize()
-    slice_ = phase_slice(dev, args.steps)
+    audio = phase_audio(dev, os.path.join(_build.BUILD_DIR, "audio"))
+    torch.cuda.synchronize()
+    slice_ = phase_slice(dev, args.steps, audio["emb"], audio["audio_length"])
     torch.cuda.synchronize()
     if args.profile_out:
         phase_profile(slice_["pipe"], slice_["inputs"], args.profile_out)
     phase_reference(slice_["models"], dev)
     torch.cuda.synchronize()
 
-    rows = [dict(name=name, **KERNELS[name], launches=slice_["counts"][name], **table[name])
-            for name in KERNELS]
+    launches = {"slice": slice_["counts"], "audio": audio["counts"]}
+    rows = []
+    for name, info in KERNELS.items():
+        stats = dict(table[name])
+        phase_launches = stats.pop("phase_launches")
+        by = info["launched_by"]
+        n = phase_launches if by == "kernel phase" else launches[by][name]
+        rows.append(dict(name=name, **info, launches=n, **stats))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

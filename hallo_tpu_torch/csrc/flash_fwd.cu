@@ -1,11 +1,22 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out, fp32 softmax.
+// Flash-attention forward for Hopper (sm_90a): bf16 or fp32 in and out,
+// bf16 tensor-core products, fp32 softmax and accumulation.
 //
-// Replaces two TPU kernels of hallo_tpu/ops/pallas_flash.py:
-//   K1 _attention_kernel_packed (natural (B, L, C = H*D) I/O, all heads), and
+// Replaces three TPU kernels of hallo_tpu/ops/pallas_flash.py:
+//   K1 _attention_kernel_packed (natural (B, L, C = H*D) I/O, all heads),
+//   K3 _attention_kernel_t (heads-major, d % 128 != 0: the wav2vec2
+//      self-attention, 12 heads of d = 64, fp32 I/O), and
 //   K4 _attention_kernel (heads-major (B, H, L, D); the VAE mid-block, d = 512).
-// Both are one kernel here: it reads q/k/v/o through (batch, token, head)
+// All are one kernel here: it reads q/k/v/o through (batch, token, head)
 // strides with the head dim contiguous, so (B, L, C) is the (B, L, H, D) view
-// and (B, H, L, D) is the same view with other strides.
+// and (B, H, L, D) is the same view with other strides. K3's transposed
+// scores and PV accumulator were a TPU MXU layout choice (d on the M axis)
+// and are not carried over.
+//
+// fp32 I/O (K3): the tiles are read from fp32 and rounded to bf16 on their
+// way into shared memory -- the rounding the TPU's MXU applies to fp32 at
+// default precision -- so the products are the same bf16 mma.sync; m, l and
+// the accumulator are fp32 as always, and the output is written in fp32.
+// These loads are synchronous (no cp.async: the type changes on the way).
 //
 // What bounds it on this card: the main-path shapes (Lq 256..4096, Lk up to
 // 8192, d 40/80/160) are compute bound -- some 10 TFLOP of QK^T and PV per
@@ -31,23 +42,19 @@
 // with cp.async (16 bytes, zero-filling out-of-range rows and padded
 // columns), so the next tile's loads overlap this tile's products; all mma
 // fragments come from shared memory through ldmatrix (.trans for V). No
-// TMA or wgmma yet.
+// TMA or wgmma yet. The softmax step, the PV product and the store are
+// flash_common.cuh's, shared with flash_int8.cu.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 struct FlashParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
+  const void* q;  // bf16 or fp32, as the instantiation's T
+  const void* k;
+  const void* v;
   const float* bias;  // (B, Lk) fp32 or nullptr
-  bf16* o;
+  void* o;
   int B, H, Lq, Lk, D;
   long long q_sb, q_sl, q_sh;
   long long k_sb, k_sl, k_sh;
@@ -56,33 +63,6 @@ struct FlashParams {
   long long bias_sb;
   float scale_log2;  // softmax scale * log2(e)
 };
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16-byte global -> shared copy that bypasses registers; zero-fills when
 // !valid (src-size 0 reads nothing).
@@ -101,17 +81,11 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Four 8x8 b16 matrices from shared memory; lane i gives the address of one
-// 16-byte row (lanes 8m..8m+7 the rows of matrix m). Without .trans, lane t
-// receives row t/4, columns 2(t%4) and 2(t%4)+1 of each matrix -- the mma
-// A/B fragment layout; with .trans, the transposed matrix.
+// 16-byte row (lanes 8m..8m+7 the rows of matrix m). Lane t receives row
+// t/4, columns 2(t%4) and 2(t%4)+1 of each matrix -- the mma A/B fragment
+// layout (ldmatrix_x4_trans gives the transposed matrices).
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
@@ -134,11 +108,12 @@ __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
   }
 }
 
-// DP: padded head dim; BK: keys per tile; WR: 16-row groups per block;
-// WD: warps sharing one row group (splitting d).
-template <int DP, int BK, int WR, int WD>
+// T: the I/O type (bf16 or float); DP: padded head dim; BK: keys per tile;
+// WR: 16-row groups per block; WD: warps sharing one row group (splitting d).
+template <typename T, int DP, int BK, int WR, int WD>
 __global__ void __launch_bounds__(32 * WR * WD)
     flash_fwd_kernel(const FlashParams p) {
+  constexpr bool F32 = sizeof(T) == 4;
   constexpr int BQ = 16 * WR;
   constexpr int NT = 32 * WR * WD;
   constexpr int SROW = DP + 8;
@@ -162,16 +137,20 @@ __global__ void __launch_bounds__(32 * WR * WD)
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
 
-  const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* biasb = p.bias ? p.bias + b * p.bias_sb : nullptr;
 
-  // Q tile and the first K/V tile in one cp.async group.
-  load_rows_async<DP, BQ>(Qs, qb, p.q_sl, q0, p.Lq, p.D, tid, NT);
-  load_rows_async<DP, BK>(Ks, kb, p.k_sl, 0, p.Lk, p.D, tid, NT);
-  load_rows_async<DP, BK>(Vs, vb, p.v_sl, 0, p.Lk, p.D, tid, NT);
-  cp_async_commit();
+  if constexpr (F32) {
+    load_rows_sync<T, DP, BQ>(Qs, qb, p.q_sl, q0, p.Lq, p.D, tid, NT);
+  } else {
+    // Q tile and the first K/V tile in one cp.async group.
+    load_rows_async<DP, BQ>(Qs, qb, p.q_sl, q0, p.Lq, p.D, tid, NT);
+    load_rows_async<DP, BK>(Ks, kb, p.k_sl, 0, p.Lk, p.D, tid, NT);
+    load_rows_async<DP, BK>(Vs, vb, p.v_sl, 0, p.Lk, p.D, tid, NT);
+    cp_async_commit();
+  }
 
   float acc[DTILES][4];
 #pragma unroll
@@ -192,9 +171,14 @@ __global__ void __launch_bounds__(32 * WR * WD)
   const int nkv = (p.Lk + BK - 1) / BK;
   for (int j = 0; j < nkv; ++j) {
     const int k0 = j * BK;
-    const bf16* Kc = Ks + (j & 1) * BK * SROW;
-    const bf16* Vc = Vs + (j & 1) * BK * SROW;
-    if (j + 1 < nkv) {  // prefetch the next tile into the other buffer
+    bf16* Kc = Ks + (j & 1) * BK * SROW;
+    bf16* Vc = Vs + (j & 1) * BK * SROW;
+    if constexpr (F32) {
+      // this buffer's last readers (tile j - 2) passed the barrier that
+      // ends every tile
+      load_rows_sync<T, DP, BK>(Kc, kb, p.k_sl, k0, p.Lk, p.D, tid, NT);
+      load_rows_sync<T, DP, BK>(Vc, vb, p.v_sl, k0, p.Lk, p.D, tid, NT);
+    } else if (j + 1 < nkv) {  // prefetch the next tile into the other buffer
       load_rows_async<DP, BK>(Ks + ((j + 1) & 1) * BK * SROW, kb, p.k_sl, k0 + BK,
                               p.Lk, p.D, tid, NT);
       load_rows_async<DP, BK>(Vs + ((j + 1) & 1) * BK * SROW, vb, p.v_sl, k0 + BK,
@@ -218,8 +202,8 @@ __global__ void __launch_bounds__(32 * WR * WD)
       for (int nt = 0; nt < KT; nt += 2) {
         uint32_t bb[4];
         ldmatrix_x4(bb, Kc + (nt * 8 + k_row) * SROW + k_col + ks * 16);
-        mma16816(s[nt], a, bb[0], bb[1]);
-        mma16816(s[nt + 1], a, bb[2], bb[3]);
+        mma_bf16(s[nt], a, bb[0], bb[1]);
+        mma_bf16(s[nt + 1], a, bb[2], bb[3]);
       }
     }
     if (WD > 1) {
@@ -254,92 +238,22 @@ __global__ void __launch_bounds__(32 * WR * WD)
       }
     }
 
-    // ---- online softmax: rows g (e = 0, 1) and g + 8 (e = 2, 3) ----
-    float t0 = -INFINITY, t1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < KT; ++nt) {
-      t0 = fmaxf(t0, fmaxf(s[nt][0], s[nt][1]));
-      t1 = fmaxf(t1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 1));
-    t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 2));
-    t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 1));
-    t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 2));
-    const float mn0 = fmaxf(m_r[0], t0), mn1 = fmaxf(m_r[1], t1);
-    const float mu0 = (mn0 == -INFINITY) ? 0.f : mn0;
-    const float mu1 = (mn1 == -INFINITY) ? 0.f : mn1;
-    const float al0 = fast_exp2(m_r[0] - mu0), al1 = fast_exp2(m_r[1] - mu1);
-    m_r[0] = mn0;
-    m_r[1] = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < KT; ++nt) {
-      s[nt][0] = fast_exp2(s[nt][0] - mu0);
-      s[nt][1] = fast_exp2(s[nt][1] - mu0);
-      s[nt][2] = fast_exp2(s[nt][2] - mu1);
-      s[nt][3] = fast_exp2(s[nt][3] - mu1);
-      rs0 += s[nt][0] + s[nt][1];
-      rs1 += s[nt][2] + s[nt][3];
-    }
-    l_r[0] = l_r[0] * al0 + rs0;  // quad-partial; reduced at the end
-    l_r[1] = l_r[1] * al1 + rs1;
-#pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt) {
-      acc[dt][0] *= al0; acc[dt][1] *= al0;
-      acc[dt][2] *= al1; acc[dt][3] *= al1;
-    }
-
-    // ---- O += P V: the S accumulator layout of two key tiles is the A
-    // operand layout of one 16-key step ----
-#pragma unroll
-    for (int t = 0; t < KT / 2; ++t) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
-      a[1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
-      a[2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
-      a[3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DTILES; dt += 2) {
-        uint32_t bb[4];
-        ldmatrix_x4_trans(bb, Vc + (t * 16 + v_row) * SROW + v_col + dt * 8);
-        mma16816(acc[dt], a, bb[0], bb[1]);
-        mma16816(acc[dt + 1], a, bb[2], bb[3]);
-      }
-    }
+    softmax_step(s, acc, m_r, l_r);
+    pv_step<KT, DTILES, SROW>(s, acc, Vc, v_row, v_col);
     __syncthreads();  // every warp is done with this buffer before its refill
   }
 
-  // ---- normalise and store ----
-  float l0 = l_r[0], l1 = l_r[1];
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  const int row0 = q0 + wr * 16 + g, row1 = row0 + 8;
-  bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int dt = 0; dt < DTILES; ++dt) {
-    const int col = wd * DS + dt * 8 + tg * 2;
-    if (col < p.D) {
-      if (row0 < p.Lq)
-        *reinterpret_cast<uint32_t*>(ob + (long long)row0 * p.o_sl + col) =
-            pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-      if (row1 < p.Lq)
-        *reinterpret_cast<uint32_t*>(ob + (long long)row1 * p.o_sl + col) =
-            pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
-    }
-  }
+  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  store_rows<T, DTILES>(ob, p.o_sl, acc, l_r, q0 + wr * 16 + g, p.Lq, wd * DS, p.D, tg);
 }
 
-template <int DP, int BK, int WR, int WD>
+template <typename T, int DP, int BK, int WR, int WD>
 cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
   constexpr int BQ = 16 * WR;
   constexpr int NT = 32 * WR * WD;
   const size_t smem = (size_t)(BQ + 4 * BK) * (DP + 8) * sizeof(bf16) +
                       (WD > 1 ? (size_t)WR * WD * (BK / 8) * 32 * sizeof(float4) : 0);
-  auto kern = flash_fwd_kernel<DP, BK, WR, WD>;
+  auto kern = flash_fwd_kernel<T, DP, BK, WR, WD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -348,9 +262,21 @@ cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t dispatch(const FlashParams& p, cudaStream_t st) {
+  if (p.D <= 48) return launch<T, 48, 64, 4, 1>(p, st);
+  if (p.D <= 64) return launch<T, 64, 64, 4, 1>(p, st);
+  if (p.D <= 80) return launch<T, 80, 64, 4, 1>(p, st);
+  if (p.D <= 128) return launch<T, 128, 64, 4, 1>(p, st);
+  if (p.D <= 160) return launch<T, 160, 64, 4, 1>(p, st);
+  if (p.D == 512) return launch<T, 512, 32, 2, 4>(p, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Head dims the card takes: any multiple of 8 up to 160, and 512.
+// dtype: 0 = bf16 q/k/v/o, 1 = fp32 q/k/v/o.
 extern "C" int hallo_flash_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     int B, int H, int Lq, int Lk, int D,
@@ -358,13 +284,13 @@ extern "C" int hallo_flash_fwd(
     long long k_sb, long long k_sl, long long k_sh,
     long long v_sb, long long v_sl, long long v_sh,
     long long o_sb, long long o_sl, long long o_sh,
-    long long bias_sb, float scale_log2, void* stream) {
+    long long bias_sb, float scale_log2, int dtype, void* stream) {
   FlashParams p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
+  p.q = q;
+  p.k = k;
+  p.v = v;
   p.bias = static_cast<const float*>(bias);
-  p.o = static_cast<bf16*>(o);
+  p.o = o;
   p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk; p.D = D;
   p.q_sb = q_sb; p.q_sl = q_sl; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_sl = k_sl; p.k_sh = k_sh;
@@ -374,11 +300,7 @@ extern "C" int hallo_flash_fwd(
   p.scale_log2 = scale_log2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 0 || D % 8 != 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
-  if (D <= 48) return (int)launch<48, 64, 4, 1>(p, st);
-  if (D <= 64) return (int)launch<64, 64, 4, 1>(p, st);
-  if (D <= 80) return (int)launch<80, 64, 4, 1>(p, st);
-  if (D <= 128) return (int)launch<128, 64, 4, 1>(p, st);
-  if (D <= 160) return (int)launch<160, 64, 4, 1>(p, st);
-  if (D == 512) return (int)launch<512, 32, 2, 4>(p, st);
+  if (dtype == 0) return (int)dispatch<bf16>(p, st);
+  if (dtype == 1) return (int)dispatch<float>(p, st);
   return (int)cudaErrorInvalidValue;
 }

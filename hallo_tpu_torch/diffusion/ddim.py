@@ -1,6 +1,6 @@
 """Deterministic DDIM step (counterpart of hallo_tpu/diffusion/ddim.py):
 v-prediction, eta = 0, no clipping. The tables come from the numpy
-`hallo_tpu.diffusion.schedule`."""
+`diffusion.schedule`."""
 
 from __future__ import annotations
 
@@ -9,8 +9,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from hallo_tpu.config import SchedulerConfig
-from hallo_tpu.diffusion import schedule
+from hallo_tpu_torch.config import SchedulerConfig
+from hallo_tpu_torch.diffusion import schedule
 
 
 class DDIMState(NamedTuple):

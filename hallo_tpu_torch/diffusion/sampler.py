@@ -7,7 +7,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from hallo_tpu.config import SchedulerConfig
+from hallo_tpu_torch.config import SchedulerConfig
 from hallo_tpu_torch.diffusion import ddim
 
 SAMPLERS = ("ddim",)

@@ -8,7 +8,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hallo_tpu.config import FaceLocatorConfig
+from hallo_tpu_torch.config import FaceLocatorConfig
 
 
 class FaceLocator(nn.Module):

@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from hallo_tpu.config import MotionModuleConfig
+from hallo_tpu_torch.config import MotionModuleConfig
 from hallo_tpu_torch.models.layers import (
     FeedForward,
     GroupNorm,

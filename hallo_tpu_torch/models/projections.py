@@ -7,7 +7,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hallo_tpu.config import AudioProjConfig, ImageProjConfig
+from hallo_tpu_torch.config import AudioProjConfig, ImageProjConfig
 from hallo_tpu_torch.models.layers import LayerNorm
 
 

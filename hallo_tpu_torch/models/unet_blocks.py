@@ -13,7 +13,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from hallo_tpu.config import MotionModuleConfig
+from hallo_tpu_torch.config import MotionModuleConfig
 from hallo_tpu_torch.models.motion import MotionModule
 from hallo_tpu_torch.models.resnet import Downsample, ResnetBlock, Upsample
 from hallo_tpu_torch.models.transformer_spatial import AudioTransformer, SpatialTransformer

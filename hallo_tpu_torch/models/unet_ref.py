@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hallo_tpu.config import UNetConfig
+from hallo_tpu_torch.config import UNetConfig
 from hallo_tpu_torch.models.layers import GroupNorm, TimestepEmbedding, timestep_embedding
 from hallo_tpu_torch.models.resnet import Downsample, ResnetBlock, Upsample
 from hallo_tpu_torch.models.transformer_spatial import ReferenceTransformer

@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hallo_tpu.config import VAEConfig
+from hallo_tpu_torch.config import VAEConfig
 from hallo_tpu_torch.models.layers import GroupNorm, Upsample2x
 from hallo_tpu_torch.ops.attention import dot_product_attention
 

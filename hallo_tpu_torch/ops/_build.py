@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled with nvcc for
 sm_90a (Hopper) into `hallo_tpu_torch/_build/<name>-<hash>.so` at its first
-use, where the hash covers the source and the flags, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is. Nothing here runs at import
-time: the CPU tests import every module of the package without a compiler.
+use, where the hash covers the source, the shared headers (`csrc/*.cuh`)
+and the flags, so an edited kernel or header is rebuilt and an unchanged one
+is loaded as it is. Nothing here runs at import time: the CPU tests import
+every module of the package without a compiler.
 
 A build that fails raises; there is no fallback.
 """
@@ -30,7 +31,8 @@ NVCC_FLAGS = (
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points, by source name.
 SIGNATURES = {
-    "flash_fwd": ("hallo_flash_fwd", [_P] * 5 + [_I] * 5 + [_LL] * 13 + [_F, _P]),
+    "flash_fwd": ("hallo_flash_fwd", [_P] * 5 + [_I] * 5 + [_LL] * 13 + [_F, _I, _P]),
+    "flash_int8": ("hallo_flash_int8", [_P] * 7 + [_I] * 6 + [_LL] * 4 + [_P]),
     "temporal_attn": (
         "hallo_temporal_attn", [_P] * 4 + [_I] * 6 + [_LL] * 3 + [_F, _P],
     ),
@@ -51,8 +53,12 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple:
     src = os.path.join(_CSRC, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header, so that editing a header rebuilds
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(_CSRC, h) for h in headers]:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from hallo_tpu.config import (
+from hallo_tpu_torch.config import (
     AudioProjConfig,
     FaceLocatorConfig,
     ImageProjConfig,
@@ -64,12 +64,13 @@ class HalloModels:
         face_locator_config: FaceLocatorConfig = FaceLocatorConfig(),
         image_proj_config: ImageProjConfig = ImageProjConfig(),
         audio_proj_config: AudioProjConfig = AudioProjConfig(),
-        device: torch.device = torch.device("cpu"),
+        device: torch.device = torch.device("cuda"),
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
     ) -> "HalloModels":
         """Random-initialised modules (PyTorch's default inits; the zero-init
-        heads as in the reference), built on `device` from `seed`."""
+        heads as in the reference), built on `device` (the card unless the
+        caller asks for another) from `seed`."""
         device = torch.device(device)
         with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
             torch.manual_seed(seed)

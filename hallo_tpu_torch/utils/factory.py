@@ -1,7 +1,8 @@
 """Model factory (counterpart of hallo_tpu/utils/factory.py): the full
-SD-1.5-based configuration, or the tiny one the CPU tests use. The `TINY_*`
-widths are the JAX package's (which imports jax, so they are restated here;
-a test holds them equal)."""
+SD-1.5-based configuration, or the tiny one the CPU tests use, and the
+wav2vec2 encoder at full or tiny width. The `TINY_*` widths are the JAX
+package's (restated here; a test holds them equal). Models are built on the
+card unless the caller asks for another device."""
 
 from __future__ import annotations
 
@@ -10,15 +11,17 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from hallo_tpu.config import (
+from hallo_tpu_torch.config import (
     AudioProjConfig,
     FaceLocatorConfig,
     ImageProjConfig,
     MotionModuleConfig,
     VAEConfig,
+    Wav2Vec2Config,
     denoising_unet_config,
     reference_unet_config,
 )
+from hallo_tpu_torch.models.wav2vec import Wav2Vec2
 from hallo_tpu_torch.pipelines.face_animate import HalloModels
 
 TINY_UNET_KW = dict(
@@ -50,9 +53,29 @@ TINY_AUX = dict(
 )
 
 
+# wav2vec2 widths by scale. "tiny" is tests/test_wav2vec_golden.py's HF
+# config; "tiny_slice" emits TINY_AUX's audio-proj input (blocks = layers,
+# channels = hidden), so that the tiny pipeline can take its embeddings.
+WAV2VEC_CONFIGS = {
+    "full": Wav2Vec2Config(),
+    "tiny": Wav2Vec2Config(
+        conv_dim=(8, 8), conv_kernel=(3, 3), conv_stride=(2, 2), hidden_size=16,
+        num_hidden_layers=2, num_attention_heads=2, intermediate_size=24,
+        num_conv_pos_embeddings=4, num_conv_pos_embedding_groups=2,
+    ),
+    "tiny_slice": Wav2Vec2Config(
+        conv_dim=(8, 8), conv_kernel=(3, 3), conv_stride=(2, 2),
+        hidden_size=TINY_AUX["audio_proj_config"].channels,
+        num_hidden_layers=TINY_AUX["audio_proj_config"].blocks,
+        num_attention_heads=2, intermediate_size=8,
+        num_conv_pos_embeddings=4, num_conv_pos_embedding_groups=2,
+    ),
+}
+
+
 def build_models(
     scale: str = "full",
-    device: torch.device = torch.device("cpu"),
+    device: torch.device = torch.device("cuda"),
     dtype: torch.dtype = torch.float32,
     seed: int = 0,
 ) -> HalloModels:
@@ -68,6 +91,24 @@ def build_models(
         reference_unet_config(**kw), denoising_unet_config(**kw),
         device=device, dtype=dtype, seed=seed, **aux,
     )
+
+
+def build_wav2vec(
+    scale: str = "full",
+    device: torch.device = torch.device("cuda"),
+    seed: int = 0,
+) -> Wav2Vec2:
+    """A random-initialised `Wav2Vec2` of `WAV2VEC_CONFIGS[scale]` from
+    `seed`, built on `device` in fp32 (the audio path runs in fp32 only, as
+    JAX's does)."""
+    if scale not in WAV2VEC_CONFIGS:
+        raise ValueError(scale)
+    device = torch.device(device)
+    with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
+        torch.manual_seed(seed)
+        with torch.device(device):
+            model = Wav2Vec2(WAV2VEC_CONFIGS[scale])
+    return model.eval().requires_grad_(False)
 
 
 def dummy_clip_inputs(

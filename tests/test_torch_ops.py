@@ -3,9 +3,11 @@
 The port's CPU path (the plain PyTorch version of each kernel) is held
 against the JAX kernels run in Pallas interpret mode, in fp32, on the same
 numpy inputs: K1 (`flash_attention_packed`), K4 (`flash_attention`, the
-straight d % 128 == 0 path) and K2 (`temporal_attention`, after the
-(B, F, C, L) <-> (B, F, L, C) transpose). fp32 throughout, so the tolerance
-is summation order: atol 2e-5.
+straight d % 128 == 0 path), K3 (`flash_attention` at d % 128 != 0, the
+transposed path) and K2 (`temporal_attention`, after the (B, F, C, L) <->
+(B, F, L, C) transpose). fp32 throughout, so the tolerance is summation
+order: atol 2e-5. K6's plain version is held against its Pallas kernel in
+test_torch_audio.py.
 
 The CUDA kernels against their plain versions are in test_torch_kernels.py.
 """
@@ -73,6 +75,25 @@ def test_plain_flash_heads_major_d512_matches_pallas(lq, lk):
     np.testing.assert_allclose(via.numpy(), got.numpy(), atol=0)
 
 
+@pytest.mark.parametrize("lq,lk,masked", [(304, 304, False), (300, 260, True)])
+def test_plain_flash_heads_major_d64_matches_pallas_transposed(lq, lk, masked):
+    """K3: 12 heads of d = 64 (the wav2vec2 self-attention), which JAX sends
+    to the transposed kernel; ragged lengths and a per-key bias."""
+    rng = np.random.default_rng(lq + lk)
+    q, k, v = _normal(rng, 1, 12, lq, 64), _normal(rng, 1, 12, lk, 64), _normal(rng, 1, 12, lk, 64)
+    bias = None
+    if masked:
+        bias = rng.normal(size=(1, lk)).astype(np.float32)
+        bias[:, lk // 2:] = -1e9
+    with pltpu.force_tpu_interpret_mode():
+        want = pallas_flash.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            bias=None if bias is None else jnp.asarray(bias))
+    got = flash.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                bias=None if bias is None else torch.from_numpy(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
 @pytest.mark.parametrize("b,f,heads,d,l", [(1, 6, 2, 8, 256), (2, 18, 2, 16, 200)])
 def test_plain_temporal_matches_pallas(b, f, heads, d, l):
     rng = np.random.default_rng(f + d + l)
@@ -112,4 +133,26 @@ def test_kernel_wrappers_reject_non_cuda_devices():
     t = torch.empty(1, 4, 9, 16, device="meta")
     with pytest.raises(ValueError):
         temporal.temporal_attention(t, t, t, heads=2)
+    h = torch.empty(1, 2, 300, 64, device="meta")
+    with pytest.raises(ValueError):
+        flash.flash_attention(h, h, h)
+    with pytest.raises(ValueError):
+        flash.flash_attention_int8(h, h, h)
 
+
+
+def test_build_target_covers_shared_headers(tmp_path, monkeypatch):
+    """A kernel's build target changes when its source or a shared header
+    under csrc/ changes, so that an edited header is rebuilt."""
+    from hallo_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
+    first = _build._target("k")[1]
+    assert _build._target("k")[1] == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = _build._target("k")[1]
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert _build._target("k")[1] not in (first, second)

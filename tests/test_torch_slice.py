@@ -57,7 +57,7 @@ def inputs(clips):
 
 
 def port_pipeline(params, steps=2):
-    pm = build_models("tiny")
+    pm = build_models("tiny", device="cpu")
     load_jax_params(pm, jax.tree.map(np.asarray, params))
     return FaceAnimatePipeline(pm, SchedulerConfig(), num_inference_steps=steps,
                                guidance_scale=3.5, clip_length=F, n_motion_frames=M)

@@ -30,7 +30,7 @@ def pair():
     jm = jax_build_models("tiny", init_key=jax.random.PRNGKey(0), height=64, width=64,
                           clip_length=4, n_motion_frames=2)
     params = {k: perturb(v, seed=i) for i, (k, v) in enumerate(sorted(jm.params.items()))}
-    pm = build_models("tiny")
+    pm = build_models("tiny", device="cpu")
     load_jax_params(pm, jax.tree.map(np.asarray, params))
     return jm, params, pm
 

@@ -72,7 +72,7 @@ def _nest(entries):
 @pytest.mark.parametrize("attr", sorted(MAPPERS))
 def test_round_trip_torch_jax_torch(attr):
     """state_dict -> torch_to_jax's map + transforms -> from_jax: identical."""
-    models = build_models("tiny", seed=3)
+    models = build_models("tiny", device="cpu", seed=3)
     module = getattr(models, attr)
     gen = torch.Generator().manual_seed(0)
     sd = {k: torch.randn(v.shape, generator=gen) for k, v in module.state_dict().items()}
@@ -82,3 +82,33 @@ def test_round_trip_torch_jax_torch(attr):
     assert sorted(back) == sorted(sd)
     for key in sd:
         np.testing.assert_array_equal(back[key].numpy(), sd[key].numpy(), err_msg=key)
+
+
+def _by_name(result):
+    """A mapper's result with its transform named (the two packages' copies
+    of the transforms are different function objects)."""
+    if isinstance(result, tuple):
+        path, transform = result
+        return path, None if transform is None else transform.__name__
+    return result
+
+
+@pytest.mark.parametrize("inventory", ["net_pth", "sd_vae_ft_mse", "wav2vec2_base_960h"])
+def test_keymaps_copy_matches_torch_to_jax(inventory):
+    """The port's copy of the per-key maps (`convert/keymaps.py`) sends every
+    key of the reference checkpoints where hallo_tpu's torch_to_jax does."""
+    from hallo_tpu_torch.convert import keymaps as km
+
+    keys = list(wi.ALL_INVENTORIES[inventory]())
+    if inventory == "wav2vec2_base_960h":
+        pairs = [(km.map_wav2vec_key, lambda k: tj.map_wav2vec_key(k, {}))]
+    elif inventory == "sd_vae_ft_mse":
+        pairs = [(km.map_vae_key, tj.map_vae_key)]
+    else:
+        pairs = [(lambda k, f=f: km.map_unet_key(k, f), lambda k, f=f: tj.map_unet_key(k, f))
+                 for f in ("reference", "denoise")]
+        pairs += [(getattr(km, n), getattr(tj, n)) for n in (
+            "map_face_locator_key", "map_image_proj_key", "map_audio_proj_key")]
+    for ours, theirs in pairs:
+        for key in keys:
+            assert _by_name(ours(key)) == _by_name(theirs(key)), key
