@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                 # a few DDIM steps per clip
     python3 chip_smoke.py --steps 40      # the exact profile
-    python3 chip_smoke.py --profile-out out/profile.txt   # + kernel profile
+    python3 chip_smoke.py --profile-out out/profile.txt   # + kernel profiles
 
 Phases, each synchronised so that a device fault surfaces where it happened:
 
@@ -11,7 +11,11 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    `hallo_tpu_torch/csrc/`;
 2. every hand-written kernel against its plain PyTorch version at the main
    paths' shapes, with its time, its plain version's, one PyTorch library
-   call's on the same inputs (a yardstick only) and its bound;
+   call's on the same inputs (a yardstick only) and its bound; K1's LSE
+   output and K5's two backward passes at the training shapes (14 frames
+   at 512^2: levels 0-2, audio and identity cross-attention), against
+   autograd's backward of `F.scaled_dot_product_attention` as the library
+   call;
 3. the driving audio: the full-width wav2vec2-base (random weights from a
    seed, fp32) through `AudioProcessor.preprocess` on
    `examples/driving_audios/1.wav` (3 s), on it tiled 4x (12 s) and, under
@@ -21,7 +25,19 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    `FaceAnimatePipeline.__call__` at 512^2 with the windows of 1.wav's
    embeddings (5 clips of 16 frames, 2 motion frames), counting each
    kernel's launches; then the port on the card is held against the same
-   weights and inputs run on the CPU in fp32 at a small size.
+   weights and inputs run on the CPU in fp32 at a small size;
+5. training: the same weights, with per-block gradient checkpointing, take
+   stage-2 train steps (`make_train_step`, AdamW) at 512^2, batch 1, 14 + 2
+   motion frames, bf16, on a synthetic batch from a seed: one warm-up
+   step, then 3 timed ones, counting each kernel's launches per step (K1
+   with its LSE, K5's two passes, K2, K4); then one step's loss and
+   trainable gradient on the card are held against the same weights on
+   the CPU in fp32 at 64x64, with a planted backward fault that the check
+   must see;
+6. the trainer: `train_stage2_process` on configs/train/stage2.yaml (batch
+   cut to 1) with a synthetic 512^2 clip in `data/datasets.py`'s .npz
+   format: 2 steps that write checkpoint-2, metrics.jsonl and final_net/,
+   then a resume from checkpoint-2 for a third step.
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`;
@@ -33,7 +49,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
+import shutil
 import subprocess
 import time
 
@@ -41,12 +59,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hallo_tpu_torch import config as cfglib
+from hallo_tpu_torch.config import AudioProjConfig, ImageProjConfig
 from hallo_tpu_torch.data.audio_processor import AudioProcessor, load_wav
 from hallo_tpu_torch.models import wav2vec as wav2vec_module
 from hallo_tpu_torch.ops import _build, flash, temporal
 from hallo_tpu_torch.ops.attention import attention_reference
 from hallo_tpu_torch.pipelines.face_animate import (
     FaceAnimatePipeline, HalloModels, window_audio_embeddings)
+from hallo_tpu_torch.train.bench_step import synthetic_batch
+from hallo_tpu_torch.train.stage2 import train_stage2_process
+from hallo_tpu_torch.train.state import (
+    AdamW, OptimizerConfig, TrainState, global_norm, stage2_trainable, unfreeze)
+from hallo_tpu_torch.train.step import (
+    TrainConfig, make_loss_fn, make_train_step, step_generator)
 from hallo_tpu_torch.utils.factory import build_models, build_wav2vec, dummy_clip_inputs
 
 # A kernel against its plain version computed in fp32 from the same inputs
@@ -65,6 +91,17 @@ from hallo_tpu_torch.utils.factory import build_models, build_wav2vec, dummy_cli
 #   the smallest, to 0.52 at Lk 304).
 KERNEL_ATOL = 2e-2
 KERNEL_RTOL = 1e-2
+
+# K1's LSE output, in log2 units: an error of x scales the backward's
+# recomputed probabilities by 2^-x, so max abs 1e-3 is 0.07% of P (read
+# 1.9e-6 on an H100). The planted fault (the first keys dropped) moves the
+# LSE by -log2(1 - their share of the mass), 0.011 for 64 of 8192 keys.
+LSE_ATOL = 1e-3
+# K5's gradients grow with the length they sum over (dV with Lq, dQ with
+# Lk), so their max abs error is held relative to the plain gradient's max
+# |value|: KERNEL_ATOL of it; the relative L2 limit is KERNEL_RTOL. On an
+# H100 they read 2.1e-3 to 4.2e-3 of max |plain| and 2.3e-3 to 2.4e-3
+# relative (the forward's bf16 rounding); the planted fault 0.11 to 0.50.
 
 # The port on the card (bf16, kernels) against the same weights on the CPU
 # (fp32, plain versions) at a small input: relative L2 error of each output.
@@ -85,6 +122,15 @@ SLICE_RTOL = 5e-2
 AUDIO_RTOL = 1e-3
 AUDIO_FAULT_SCALE = 1.03
 
+# One stage-2 train step on the card (bf16, kernels, per-block
+# checkpointing) against the same weights and batch on the CPU (fp32, plain
+# versions) at 64x64, 4 + 2 frames: relative error of the loss and relative
+# L2 error of the flattened trainable gradient. bf16 rounding through the
+# whole forward and backward: the gradient read 2.4e-2 and the loss 4.2e-5
+# on an H100, so the limit is 2x the gradient's reading. The planted
+# backward fault (K5's dQ zeroed) read 0.119 there and must exceed it.
+TRAIN_RTOL = 5e-2
+
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense, at
 # the full 700 W limit): bytes over the memory rate, operations over the
 # tensor-core rate of their type.
@@ -92,8 +138,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 
-WAV = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                   "examples", "driving_audios", "1.wav")
+REPO = os.path.dirname(os.path.abspath(__file__))
+WAV = os.path.join(REPO, "examples", "driving_audios", "1.wav")
+STAGE2_YAML = os.path.join(REPO, "configs", "train", "stage2.yaml")
 
 # Rows of the kernels' table: the TPU kernel each replaces, and the path
 # whose run counts its launches.
@@ -123,6 +170,16 @@ KERNELS = {
     "temporal_attn_packed": dict(
         tpu="K7", route="cuda", source="hallo_tpu_torch/csrc/temporal_attn.cu",
         replaces="hallo_tpu/ops/pallas_temporal.py:104", launched_by="kernel phase",
+    ),
+    # K5's two passes, launched by the train steps (their launches: the 3
+    # timed steps' total)
+    "flash_bwd_dkv": dict(
+        tpu="K5", route="cuda", source="hallo_tpu_torch/csrc/flash_bwd.cu",
+        replaces="hallo_tpu/ops/pallas_flash.py:425", launched_by="train",
+    ),
+    "flash_bwd_dq": dict(
+        tpu="K5", route="cuda", source="hallo_tpu_torch/csrc/flash_bwd.cu",
+        replaces="hallo_tpu/ops/pallas_flash.py:497", launched_by="train",
     ),
 }
 
@@ -175,7 +232,7 @@ def preflight() -> str:
     for name in sorted(_build.build_log):
         log(f"--- nvcc {name}.cu ({_build.build_seconds[name]:.1f} s)")
         log(_build.build_log[name].strip())
-    for name in _build.SIGNATURES:
+    for name in _build.SOURCES:
         _build.lib(name)
     return smi
 
@@ -304,44 +361,153 @@ def kernel_cases(dev):
     for b, f, heads, d, l in ((1, 6, 2, 8, 256), (2, 5, 2, 16, 200)):
         cases.append(frames("temporal_attn_packed", f"K7 B {b} F {f} heads {heads} d {d} L {l}",
                             b, f, l, heads * d, heads))
+    # Training: K1 with its LSE and K5's two passes at the stage-2 shapes
+    # (14 frames at 512^2): levels 0-2 of the spatial self-attention over the
+    # reference concat with the CFG-uncond bias (the ref half masked on half
+    # the batch), the audio (Lk 32) and the identity (Lk 4) cross-attention.
+    for name, lq, lk, c, with_bias in (
+        ("level 0", 4096, 8192, 320, True), ("level 1", 1024, 2048, 640, True),
+        ("level 2", 256, 512, 1280, True), ("audio", 4096, 32, 320, False),
+        ("identity", 4096, 4, 320, False),
+    ):
+        cases += training_cases(randn, sdpa, dev, name, 14, lq, lk, c, 8, with_bias)
     return cases
+
+
+def per_sample(fn, *tensors):
+    """`fn` on each batch element alone, concatenated: bounds the plain
+    versions' (H, Lq, Lk) fp32 temporaries at the training batch of 14."""
+    outs = [fn(*(None if t is None else t[i:i + 1] for t in tensors))
+            for i in range(tensors[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(x) for x in zip(*outs))
+    return torch.cat(outs)
+
+
+def training_cases(randn, sdpa, dev, name, b, lq, lk, c, heads, with_bias):
+    """K1's LSE, K5's dK/dV pass and K5's dQ pass at one training shape,
+    each against its plain version from the same inputs (K5's from the
+    kernel forward's out and LSE, the residuals it is given in training).
+    The planted fault drops the first n keys (n = 64, or Lk / 8 at short
+    Lk); for dK/dV their rows become zero."""
+    d = c // heads
+    q, k, v, g = randn(b, lq, c), randn(b, lk, c), randn(b, lk, c), randn(b, lq, c)
+    bias = None
+    if with_bias:
+        bias = torch.zeros(b, lk, device=dev)
+        bias[: b // 2, lk // 2:] = -1e9  # the denoiser's NEG_INF on the ref tokens
+    out, lse = flash.flash_forward_packed(q, k, v, heads, bias, with_lse=True)
+    args = flash.backward_args(q, k, v, bias, out, lse, g, heads)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    n = min(64, max(1, lk // 8))
+    label = f"B {b} Lq {lq} Lk {lk} C {c}{', bias' if with_bias else ''} ({name})"
+
+    def plain_bwd(drop=0):
+        kb = None if bias is None else bias[:, drop:]
+        return per_sample(
+            lambda *t: flash.flash_backward_reference(*t, heads), qf, kf[:, drop:],
+            vf[:, drop:], kb, out, lse, gf)
+
+    def pad(t):  # the dropped keys' rows of dK/dV are zero
+        return torch.cat([torch.zeros_like(t[:, :n]), t], dim=1)
+
+    def heads_major(t):
+        return t.unflatten(2, (heads, d)).transpose(1, 2)
+
+    qh, kh, vh = (heads_major(t).detach().requires_grad_() for t in (q, k, v))
+    mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
+    oh = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    gh = heads_major(g)
+
+    def sdpa_backward():
+        return torch.autograd.grad(oh, (qh, kh, vh), gh, retain_graph=True)
+
+    io = 2 * b * c * (2 * lq + 2 * lk) + (0 if bias is None else 4 * b * lk)
+    stats = 4 * b * heads * lq  # one fp32 (B, H, Lq) tensor
+    gemm = 2.0 * b * heads * lq * lk * d
+    return [
+        dict(row="flash_fwd_packed", label=f"K1 with LSE, {label}",
+             fn=lambda: flash.flash_forward_packed(q, k, v, heads, bias, with_lse=True)[1],
+             plain=lambda: per_sample(
+                 lambda q1, k1, b1: flash.flash_lse_reference(q1, k1, heads, b1), qf, kf, bias),
+             library=sdpa(heads_major(q), heads_major(k), heads_major(v), bias),
+             fault=lambda: per_sample(
+                 lambda q1, k1, b1: flash.flash_lse_reference(q1, k1, heads, b1),
+                 qf, kf[:, n:], None if bias is None else bias[:, n:]),
+             cost=(io + stats, 2 * gemm, 0.0), atol=LSE_ATOL, fault_by="abs",
+             plain_iters=3),
+        dict(row="flash_bwd_dkv", label=f"K5 dK/dV, {label}",
+             fn=lambda: flash.flash_bwd_dkv(args),
+             plain=lambda: plain_bwd()[1:], library=sdpa_backward,
+             fault=lambda: tuple(pad(t) for t in plain_bwd(n)[1:]),
+             cost=(io + 2 * stats + 2 * b * c * 2 * lk, 4 * gemm, 0.0), scaled=True,
+             plain_iters=2),
+        dict(row="flash_bwd_dq", label=f"K5 dQ, {label}",
+             fn=lambda: flash.flash_bwd_dq(args),
+             plain=lambda: plain_bwd()[0], library=sdpa_backward,
+             fault=lambda: plain_bwd(n)[0],
+             cost=(io + 2 * stats + 2 * b * c * lq, 3 * gemm, 0.0), scaled=True,
+             plain_iters=2),
+    ]
+
+
+def _errors(got, want):
+    """Worst max abs error, max abs error over max |plain|, and relative L2
+    error over the output (or each output of a tuple)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = scaled = rel = 0.0
+    for a, w in zip(got, want):
+        diff = (a.float() - w.float())
+        e = diff.abs().max().item()
+        err = max(err, e)
+        scaled = max(scaled, e / w.float().abs().max().item())
+        rel = max(rel, (diff.norm() / w.float().norm()).item())
+    return err, scaled, rel
 
 
 def phase_kernels(dev) -> dict:
     """Each kernel vs its plain version; returns {row: stats of its first
     (main-path) case, with the worst error over all its cases, and the
-    launches its cases made}."""
+    launches its cases made}. A case holds max abs error `atol` (of max
+    |plain| with `scaled`) and relative L2 error `rtol`; its planted fault
+    must exceed the limit named by `fault_by` ("rel" or "abs")."""
     table = {}
     for case in kernel_cases(dev):
         label = case["label"]
+        atol, rtol = case.get("atol", KERNEL_ATOL), case.get("rtol", KERNEL_RTOL)
         before = sum(launch_counts().values())
-        got = case["fn"]().float()
-        want = case["plain"]().float()
+        got = case["fn"]()
+        want = case["plain"]()
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        rel = ((got - want).norm() / want.norm()).item()
-        if not torch.isfinite(got).all():
+        err, scaled, rel = _errors(got, want)
+        held = scaled if case.get("scaled") else err
+        if not all(torch.isfinite(t).all() for t in (got if isinstance(got, tuple) else (got,))):
             raise RuntimeError(f"{label}: non-finite kernel output")
-        fault_rel = None
+        fault = None
         if case.get("fault") is not None:
-            fault_rel = ((case["fault"]().float() - want).norm() / want.norm()).item()
-        ms, plain_ms = cuda_ms(case["fn"]), cuda_ms(case["plain"])
+            f_err, _, f_rel = _errors(case["fault"](), want)
+            fault = f_err if case.get("fault_by") == "abs" else f_rel
+        ms, plain_ms = cuda_ms(case["fn"]), cuda_ms(case["plain"], case.get("plain_iters", 20))
         library_ms = cuda_ms(case["library"])
         launched = sum(launch_counts().values()) - before
         b_ms, b_by = bound_ms(*case["cost"])
-        log(f"{label}: max_abs_err {err:.3e} (atol {KERNEL_ATOL}) rel_err {rel:.3e} "
-            f"(rtol {KERNEL_RTOL}) |plain| max {want.abs().max().item():.3e} "
+        abs_name = "max_abs_err / max|plain|" if case.get("scaled") else "max_abs_err"
+        log(f"{label}: {abs_name} {held:.3e} (atol {atol}) rel_err {rel:.3e} "
+            f"(rtol {rtol}) max_abs_err {err:.3e} "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
             f"bound {b_ms:.4f} ms ({b_by})")
-        if fault_rel is not None:
-            log(f"  planted fault, first 64 keys dropped: rel_err {fault_rel:.3e}")
+        if fault is not None:
+            log(f"  planted fault, first keys dropped: "
+                f"{'max_abs_err' if case.get('fault_by') == 'abs' else 'rel_err'} {fault:.3e}")
         for part, part_fn in case.get("parts", {}).items():
             log(f"  {part} alone: {cuda_ms(part_fn):.4f} ms")
-        if not (err <= KERNEL_ATOL and rel <= KERNEL_RTOL):
+        if not (held <= atol and rel <= rtol):
             raise RuntimeError(f"{label}: kernel disagrees with plain version "
-                               f"(max abs {err}, relative {rel})")
-        if fault_rel is not None and not fault_rel > KERNEL_RTOL:
-            raise RuntimeError(f"{label}: the check misses a dropped key tile ({fault_rel})")
+                               f"({abs_name} {held}, relative {rel})")
+        limit = atol if case.get("fault_by") == "abs" else rtol
+        if fault is not None and not fault > limit:
+            raise RuntimeError(f"{label}: the check misses a dropped key tile ({fault})")
         row = table.setdefault(case["row"], dict(
             max_abs_err=0.0, rel_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=b_ms, bound_by=b_by, phase_launches=0))
@@ -514,9 +680,11 @@ def phase_reference(models: HalloModels, dev, scale: str = "full") -> dict:
 
 def phase_slice(dev, steps: int, audio_emb: np.ndarray, audio_length: int) -> dict:
     """Full-width models, 512^2, driven by the windows of 1.wav's embeddings:
-    clips of 16 frames + 2 motion frames."""
+    clips of 16 frames + 2 motion frames. The denoiser is built with
+    per-block checkpointing for the train phase; it acts only where a
+    gradient is taken, so inference runs as without it."""
     t0 = time.perf_counter()
-    models = build_models("full", device=dev, dtype=torch.bfloat16, seed=0)
+    models = build_models("full", device=dev, dtype=torch.bfloat16, seed=0, remat=True)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for mod in models.modules().values() for p in mod.parameters())
     log(f"build_models(full, bf16): {time.perf_counter() - t0:.1f} s, {n_params} parameters")
@@ -566,16 +734,227 @@ def phase_slice(dev, steps: int, audio_emb: np.ndarray, audio_length: int) -> di
     return dict(models=models, counts=counts, pipe=pipe, inputs=inputs)
 
 
-def phase_profile(pipe: FaceAnimatePipeline, inputs: dict, out_path: str) -> None:
-    """One clip under torch.profiler: device time by kernel (top rows here,
-    all rows to `out_path`) and the device's busy share of the wall time."""
+def loss_and_grads(models: HalloModels, batch: dict) -> tuple:
+    """One stage-2 loss (no dropouts) and the flattened fp32 gradient of the
+    trainable parameters, on the CPU."""
+    trainable = unfreeze(models.modules(), stage2_trainable)
+    cfg = TrainConfig(uncond_img_ratio=0.0, uncond_audio_ratio=0.0, uncond_ia_ratio=0.0,
+                      start_ratio=0.0)
+    loss = make_loss_fn(models, cfg)(batch, torch.Generator(device=models.device))
+    grads = torch.autograd.grad(loss, list(trainable.values()))
+    return loss.item(), torch.cat([g.float().flatten().cpu() for g in grads])
+
+
+def phase_train(models: HalloModels, dev, scale: str = "full", profile_out: str = "") -> dict:
+    """Stage-2 train steps on the full-width models at 512^2, B 1, 14 + 2
+    frames, bf16, per-block checkpointing (with `profile_out`, one more step
+    under torch.profiler, written there); then the card against the CPU.
+    The snapshots that the checks compare with are kept in host memory, out
+    of the peak."""
+    if not models.denoising_net.config.remat:
+        raise RuntimeError("the train phase needs the denoiser built with remat=True")
+    trainable = unfreeze(models.modules(), stage2_trainable)
+    frozen = {f"{top}.{k}": p.detach().cpu() for top, mod in models.modules().items()
+              for k, p in mod.named_parameters() if not p.requires_grad}
+    n_train = sum(p.numel() for p in trainable.values())
+    log(f"training: {len(trainable)} trainable tensors, {n_train} parameters; "
+        f"{sum(p.numel() for p in frozen.values())} frozen")
+    opt = AdamW(OptimizerConfig(learning_rate=1e-5, lr_warmup_steps=1))  # stage2.yaml
+    state = TrainState.create(trainable, opt)
+    masters0 = {k: v.cpu() for k, v in state.params.items()}
+    step = make_train_step(models, trainable, opt, TrainConfig())
+    size, frames, motion = 512, 14, 2
+    batch = synthetic_batch(models, 1, size, frames, motion, seed=0, fixed=False)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, batch, step_generator(0, 0, dev))
+    torch.cuda.synchronize()
+    log(f"train warm-up step: {time.perf_counter() - t0:.3f} s, loss {m['loss']:.5f} "
+        f"grad_norm {m['grad_norm']:.5f} skipped {m['skipped']:.0f}")
+    reset_counts()
+    seconds = []
+    for i in range(1, 4):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, step_generator(0, i, dev))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        log(f"train step {i}: {seconds[-1]:.4f} s, loss {m['loss']:.5f} "
+            f"grad_norm {m['grad_norm']:.5f} skipped {m['skipped']:.0f}")
+        if m["skipped"] or not np.isfinite(m["loss"]):
+            raise RuntimeError(f"train step {i}: non-finite loss or gradients ({m})")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train at {size}^2, B 1, {frames} + {motion} frames, bf16, per-block checkpointing: "
+        f"seconds per step {[round(x, 4) for x in seconds]}, median "
+        f"{float(np.median(seconds)):.4f}")
+    log(f"train peak device memory (warm-up included): {peak / 2**30:.3f} GiB")
+    per_step = {k: v / len(seconds) for k, v in counts.items()}
+    log(f"kernel launches per train step: {per_step}")
+    for name in ("flash_fwd_packed", "flash_bwd_dkv", "flash_bwd_dq", "temporal_attn",
+                 "flash_fwd"):
+        if per_step[name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched by the train step")
+
+    unchanged = [k for k, v in state.params.items() if torch.equal(v.cpu(), masters0[k])]
+    if unchanged:
+        raise RuntimeError(f"{len(unchanged)} trainable tensors did not change: {unchanged[:5]}")
+    for top, mod in models.modules().items():
+        for k, p in mod.named_parameters():
+            if not p.requires_grad and not torch.equal(p.cpu(), frozen[f"{top}.{k}"]):
+                raise RuntimeError(f"frozen {top}.{k} changed")
+    log(f"after 4 steps: all {len(state.params)} trainable tensors changed, "
+        f"no frozen one did")
+    if profile_out:
+        rows, wall = profile_call(
+            "train step", lambda: step(state, batch, step_generator(0, 4, dev)), profile_out)
+        k5 = sum(ms for ms, _, name in rows if "flash_bwd" in name)
+        busy = sum(r[0] for r in rows)
+        log(f"K5 in the profiled train step: {k5:.1f} ms, {100 * k5 / busy:.1f}% of device "
+            f"time, {100 * k5 / wall:.1f}% of wall")
+    del state, opt, step, frozen, masters0
+    torch.cuda.empty_cache()
+
+    # The card against the CPU: the same weights, one step's loss and
+    # trainable gradient at 64x64, 4 + 2 frames. The trainable parameters
+    # are perturbed first: the zero-initialised motion proj_out and audio
+    # zero_convs would otherwise zero the gradient of everything before them.
+    gen = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():
+        for p in trainable.values():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device=dev).to(p.dtype))
+    small = synthetic_batch(models, 1, 64, 4, 2, seed=1, fixed=True)
+    card_loss, card_grad = loss_and_grads(models, small)
+    cpu = on_cpu_fp32(models, scale)
+    cpu_loss, cpu_grad = loss_and_grads(cpu, small)
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_err = rel_err(card_grad, cpu_grad)
+    log(f"train step vs CPU fp32 at 64x64: loss {card_loss:.6f} vs {cpu_loss:.6f} "
+        f"(rel {loss_err:.3e}), trainable gradient rel_err {grad_err:.3e} "
+        f"(|g| {global_norm([cpu_grad]).item():.4e}; rtol {TRAIN_RTOL})")
+    if not (loss_err <= TRAIN_RTOL and grad_err <= TRAIN_RTOL):
+        raise RuntimeError(f"the train step on the card disagrees with the CPU "
+                           f"(loss {loss_err}, gradient {grad_err})")
+    # The planted fault: K5's dQ pass returns zeros; the check must see it.
+    real = flash.flash_bwd_dq
+    flash.flash_bwd_dq = lambda a: torch.zeros_like(a.q)
+    try:
+        _, fault_grad = loss_and_grads(models, small)
+    finally:
+        flash.flash_bwd_dq = real
+    fault_err = rel_err(fault_grad, cpu_grad)
+    log(f"planted fault, K5's dQ zeroed: trainable gradient rel_err {fault_err:.3e}")
+    if not fault_err > TRAIN_RTOL:
+        raise RuntimeError(f"the train check misses a zeroed dQ ({fault_err})")
+    return dict(counts=counts, seconds=seconds, peak=peak, loss_err=loss_err,
+                grad_err=grad_err, fault_err=fault_err)
+
+
+def write_trainer_clip(root: str, frames: int, size: int, seed: int) -> str:
+    """One synthetic clip in `data/datasets.py`'s .npz format, at the input
+    sizes of the full-width ImageProj and AudioProj, and its meta.json
+    (returned)."""
+    ap, ip = AudioProjConfig(), ImageProjConfig()
+    rng = np.random.default_rng(seed)
+    data = dict(
+        frames=rng.integers(0, 256, (frames, size, size, 3), dtype=np.uint8),
+        audio_emb=rng.normal(size=(frames, ap.blocks, ap.channels)).astype(np.float32),
+        face_emb=rng.normal(size=(ip.clip_embeddings_dim,)).astype(np.float32),
+        face_region=np.ones((size, size, 3), np.float32),
+    )
+    for level in range(4):
+        tokens = (size // 8 >> level) ** 2
+        for kind in ("full", "face", "lip"):
+            data[f"{kind}_mask_{level}"] = (rng.uniform(size=(1, tokens)) > 0.3).astype(
+                np.float32)
+    os.makedirs(root, exist_ok=True)
+    clip = os.path.join(root, "clip0.npz")
+    np.savez(clip, **data)
+    meta = os.path.join(root, "meta.json")
+    with open(meta, "w") as fh:
+        json.dump([{"clip_path": clip}], fh)
+    return meta
+
+
+def phase_trainer(dev) -> dict:
+    """`train_stage2_process`, the trainer behind `python -m
+    hallo_tpu_torch.train.stage2`, on configs/train/stage2.yaml with these
+    cuts: batch 1 (its 4 does not fit 80 GB, PERF.md), 2 steps with a
+    checkpoint at step 2, no validation renders, one synthetic clip of 20
+    frames at 512^2. Then a resume from checkpoint-2 for a third step. The
+    YAML's pretrained paths are absent from the checkout, so the trainer
+    skips them and keeps its random weights from the YAML's seed."""
+    root = os.path.join(_build.BUILD_DIR, "trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = cfglib.load_config(STAGE2_YAML)
+    size = int(cfg.data.train_width)
+    cfg.data.train_bs = 1
+    cfg.data.meta_paths = [write_trainer_clip(os.path.join(root, "data"), 20, size, seed=3)]
+    cfg.solver.max_train_steps = 2
+    cfg.checkpointing_steps = 2
+    cfg.val.validation_steps = 0
+    cfg.output_dir = root
+    cfg.log_every = 1
+    exp = os.path.join(root, str(cfg.exp_name))
+
+    def run(steps: int):
+        cfg.solver.max_train_steps = steps
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_stage2_process(cfg, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(exp, "metrics.jsonl")) as fh:
+            lines = [json.loads(line) for line in fh]
+        log(f"trainer to step {steps}: {seconds:.3f} s with the model build and the files, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; metrics.jsonl "
+            f"(step, loss, grad_norm, sec): "
+            f"{[(r['step'], r['loss'], r['grad_norm'], r['sec']) for r in lines]}")
+        if state.step != steps or [r["step"] for r in lines] != list(range(steps)):
+            raise RuntimeError(f"trainer: step {state.step}, metrics.jsonl steps "
+                               f"{[r['step'] for r in lines]}; want {steps}")
+        if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in lines):
+            raise RuntimeError(f"trainer: non-finite loss or grad norm in {lines}")
+        if not os.path.isfile(os.path.join(exp, "final_net", "denoising_net.pt")):
+            raise RuntimeError("trainer: no final_net/ export")
+        return state, launch_counts(), seconds
+
+    state, counts, seconds = run(2)
+    log(f"kernel launches in the trainer's 2 steps: {counts}")
+    for name in ("flash_fwd_packed", "flash_bwd_dkv", "flash_bwd_dq", "temporal_attn",
+                 "flash_fwd"):
+        if counts[name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched by the trainer")
+    if not os.path.isfile(os.path.join(exp, "checkpoint-2", "train_state.pt")):
+        raise RuntimeError("trainer: no checkpoint-2 after 2 steps")
+    masters = {k: v.cpu() for k, v in state.params.items()}
+    del state
+    torch.cuda.empty_cache()
+    resumed, _, resume_s = run(3)
+    same = [k for k, v in resumed.params.items() if torch.equal(v.cpu(), masters[k])]
+    if resumed.params.keys() != masters.keys() or same:
+        raise RuntimeError(f"trainer resume: {len(same)} trainable tensors did not move in "
+                           f"step 3: {same[:5]}")
+    log(f"trainer resumed from checkpoint-2: step 3 moved all {len(masters)} trainable tensors")
+    del resumed
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return dict(counts=counts, seconds=seconds, resume_seconds=resume_s)
+
+
+def profile_call(what: str, fn, out_path: str) -> list:
+    """`fn` under torch.profiler: device time by kernel (top rows here, all
+    rows to `out_path`) and the device's busy share of the wall time.
+    Returns the rows (ms, count, kernel name) and the wall ms."""
     from torch.profiler import ProfilerActivity, profile
 
-    one = dict(inputs, audio_windows=inputs["audio_windows"][:pipe.clip_length])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(**one, seed=1)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -588,23 +967,37 @@ def phase_profile(pipe: FaceAnimatePipeline, inputs: dict, out_path: str) -> Non
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    lines = [f"profiled clip: wall {wall * 1e3:.1f} ms (profiler on), device busy "
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if not str(e.device_type).endswith("CUDA") and e.self_cpu_time_total > 0),
+                  reverse=True)
+    lines = [f"profiled {what}: wall {wall * 1e3:.1f} ms (profiler on), device busy "
              f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of wall)"]
     lines += [f"{ms:10.3f} ms {100 * ms / busy:5.1f}% x{n:<6d} {name[:110]}"
               for ms, n, name in rows]
+    lines += [f"host: self CPU time by op, {sum(r[0] for r in host):.1f} ms in all"]
+    lines += [f"{ms:10.3f} ms x{n:<6d} {name[:110]}" for ms, n, name in host[:40]]
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     with open(out_path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
     for line in lines[:31]:
         log(line)
+    return rows, wall * 1e3
+
+
+def phase_profile(pipe: FaceAnimatePipeline, inputs: dict, out_path: str) -> None:
+    """One clip under torch.profiler (`profile_call`)."""
+    one = dict(inputs, audio_windows=inputs["audio_windows"][:pipe.clip_length])
+    profile_call("clip", lambda: pipe(**one, seed=1), out_path)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4, help="DDIM steps per clip")
     ap.add_argument("--profile-out", metavar="PATH",
-                    help="also profile one clip; write every kernel's device time to PATH")
+                    help="also profile one clip and one train step; write every kernel's "
+                         "device time to PATH and to PATH with _train before its suffix")
     args = ap.parse_args()
+    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
 
     preflight()
     dev = torch.device("cuda", 0)
@@ -618,8 +1011,17 @@ def main() -> None:
         phase_profile(slice_["pipe"], slice_["inputs"], args.profile_out)
     phase_reference(slice_["models"], dev)
     torch.cuda.synchronize()
+    train_profile = ""
+    if args.profile_out:
+        root, ext = os.path.splitext(args.profile_out)
+        train_profile = f"{root}_train{ext}"
+    train = phase_train(slice_["models"], dev, profile_out=train_profile)
+    torch.cuda.synchronize()
+    launches = {"slice": slice_["counts"], "audio": audio["counts"], "train": train["counts"]}
+    del slice_  # the trainer builds its own models
+    torch.cuda.empty_cache()
+    phase_trainer(dev)
 
-    launches = {"slice": slice_["counts"], "audio": audio["counts"]}
     rows = []
     for name, info in KERNELS.items():
         stats = dict(table[name])

@@ -3,16 +3,21 @@
 The port's own copy of the dataclasses and helpers of hallo_tpu/config.py
 that it uses (the port imports nothing of the JAX package). Field names,
 defaults and semantics are the JAX package's, less the fields the port does
-not implement (UNetConfig's training-only `remat` / `remat_inner`,
-`use_linear_projection` and `upcast_attention`, which SD-1.5 leaves off;
-SchedulerConfig's `clip_sample`, off in the reference's DDIM). A port
-configuration's `dataclasses.asdict` builds the same JAX configuration.
+not implement (UNetConfig's `remat_inner`, which existed to fit a 16 GB
+chip, and `use_linear_projection` and `upcast_attention`, which SD-1.5
+leaves off; SchedulerConfig's `clip_sample`, off in the reference's DDIM). A
+port configuration's `dataclasses.asdict` builds the same JAX configuration.
+
+The YAML helpers (`unet_config_from_yaml_kwargs`, `DotDict`, `load_yaml`,
+`load_config`, `to_container`) are copies of the JAX package's without
+OmegaConf: configs load as `DotDict`s.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Tuple
+from typing import Any, Mapping, Tuple
 
 
 @dataclass(frozen=True)
@@ -78,6 +83,11 @@ class UNetConfig:
     # is the reference's inference, "all" its training
     # (unet_3d_blocks.py:482-490 vs :750-770, :1203-1229).
     motion_frame_fusion: str = "mid"
+
+    # Per-block gradient checkpointing in training (the reference's
+    # solver.gradient_checkpointing): each down, mid and up block of the
+    # denoiser is recomputed in the backward pass.
+    remat: bool = False
 
 
 @dataclass(frozen=True)
@@ -171,3 +181,90 @@ def denoising_unet_config(**overrides: Any) -> UNetConfig:
                 use_inflated_groupnorm=True)
     base.update(overrides)
     return UNetConfig(**base)
+
+
+def _tupled(value: Any) -> Any:
+    if isinstance(value, (list, tuple)):
+        return tuple(_tupled(v) for v in value)
+    return value
+
+
+def unet_config_from_yaml_kwargs(kwargs: Mapping[str, Any], **extra: Any) -> UNetConfig:
+    """Build a UNetConfig from the reference's `unet_additional_kwargs` YAML
+    sub-tree (configs/inference/default.yaml:46-74)."""
+    kwargs = dict(kwargs)
+    mm_kwargs = kwargs.pop("motion_module_kwargs", {}) or {}
+    motion = MotionModuleConfig(
+        num_attention_heads=int(mm_kwargs.get("num_attention_heads", 8)),
+        num_transformer_block=int(mm_kwargs.get("num_transformer_block", 1)),
+        attention_block_types=_tupled(
+            mm_kwargs.get("attention_block_types", ("Temporal_Self", "Temporal_Self"))
+        ),
+        temporal_position_encoding=bool(mm_kwargs.get("temporal_position_encoding", True)),
+        temporal_position_encoding_max_len=int(
+            mm_kwargs.get("temporal_position_encoding_max_len", 32)
+        ),
+        temporal_attention_dim_div=int(mm_kwargs.get("temporal_attention_dim_div", 1)),
+        norm_num_groups=int(mm_kwargs.get("norm_num_groups", 32)),
+    )
+    known = {f.name for f in dataclasses.fields(UNetConfig)}
+    # Reference-only knobs are ignored (always false in its configs):
+    # use_landmark, unet_use_cross_frame_attention, unet_use_temporal_attention,
+    # motion_module_type ("Vanilla" is the only implementation).
+    picked = {key: _tupled(value) for key, value in kwargs.items() if key in known}
+    picked.update(extra)
+    picked["motion_module"] = motion
+    return UNetConfig(**picked)
+
+
+class DotDict(dict):
+    """Attribute-access dict, so that YAML configs read like the reference's
+    OmegaConf objects (cfg.data.n_sample_frames)."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    @classmethod
+    def wrap(cls, value: Any) -> Any:
+        if isinstance(value, Mapping):
+            return cls({k: cls.wrap(v) for k, v in value.items()})
+        if isinstance(value, list):
+            return [cls.wrap(v) for v in value]
+        return value
+
+
+def load_yaml(path: str) -> Any:
+    """A YAML file as a `DotDict` (needs PyYAML)."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(
+            f"loading {path} needs PyYAML (the `yaml` module), which is not installed"
+        ) from e
+    with open(path) as f:
+        return DotDict.wrap(yaml.safe_load(f))
+
+
+def load_config(path: str) -> Any:
+    """A training or inference config from YAML, or from a Python module
+    that exposes `cfg` (reference scripts/train_stage1.py:765-780)."""
+    if path.endswith(".py"):
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location("hallo_cfg_module", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return DotDict.wrap(getattr(module, "cfg"))
+    if path.endswith((".yaml", ".yml")):
+        return load_yaml(path)
+    raise ValueError(f"config must be .yaml/.yml or .py, got: {path}")
+
+
+def to_container(config: Any) -> dict:
+    return dict(config)

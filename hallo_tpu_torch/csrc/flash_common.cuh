@@ -1,12 +1,15 @@
 // Device code shared by the flash-attention kernels for Hopper (sm_90a):
-// flash_fwd.cu (bf16 QK^T; K1, K3, K4) and flash_int8.cu (int8 QK^T; K6).
+// flash_fwd.cu (bf16 QK^T; K1, K3, K4), flash_int8.cu (int8 QK^T; K6) and
+// flash_bwd.cu (the two-pass backward; K5).
 //
-// Both keep one warp per 16 query rows in the mma.sync fragment layout: lane
-// (g = lane / 4, tg = lane % 4) holds rows g and g + 8 of each 8-key score
-// tile, at keys 2 tg and 2 tg + 1 (e = 0, 1 for row g; e = 2, 3 for row
-// g + 8). What follows the scores is the same in both: the online base-2
-// softmax in fp32, P and V as bf16 into mma.sync with fp32 accumulation, and
-// the normalised store in the output's type (bf16 or fp32).
+// All keep one warp per 16 rows in the mma.sync fragment layout: lane
+// (g = lane / 4, tg = lane % 4) holds rows g and g + 8 of each 8-column
+// score tile, at columns 2 tg and 2 tg + 1 (e = 0, 1 for row g; e = 2, 3 for
+// row g + 8). In the forwards the rows are queries and what follows the
+// scores is the same in both: the online base-2 softmax in fp32, P and V as
+// bf16 into mma.sync with fp32 accumulation, and the normalised store in the
+// output's type (bf16 or fp32). The backward uses the same products
+// (`pv_step` with other operands) and stores.
 
 #pragma once
 
@@ -53,6 +56,50 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const bf16* p) 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// 16-byte global -> shared copy that bypasses registers; zero-fills when
+// !valid (src-size 0 reads nothing).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices from shared memory; lane i gives the address of one
+// 16-byte row (lanes 8m..8m+7 the rows of matrix m). Lane t receives row
+// t/4, columns 2(t%4) and 2(t%4)+1 of each matrix -- the mma A/B fragment
+// layout (ldmatrix_x4_trans gives the transposed matrices).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// rows x DP tile, row-major in shared memory with row stride DP + 8 (the +8
+// puts the 8 rows an ldmatrix phase reads on distinct banks). Columns >= D
+// and rows >= n_valid are zero-filled.
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
+                                                long long s_l, int row0, int n_valid,
+                                                int D, int tid, int nthr) {
+  constexpr int SROW = DP + 8;
+  constexpr int VPR = DP / 8;
+  for (int i = tid; i < ROWS * VPR; i += nthr) {
+    const int r = i / VPR;
+    const int c = (i % VPR) * 8;
+    const int gr = row0 + r;
+    const bool valid = gr < n_valid && c < D;
+    cp_async16(dst + r * SROW + c, valid ? src + (long long)gr * s_l + c : src, valid);
+  }
 }
 
 // ROWS rows of a (L, D) matrix of T (row stride s_l elements) into shared
@@ -151,42 +198,52 @@ __device__ __forceinline__ void pv_step(const float (&s)[KT][4], float (&acc)[DT
   }
 }
 
-// Normalise rows row0 and row0 + 8 by their quad-reduced l (a row whose keys
-// were all masked gets 0) and store the columns col0 + 8 dt + 2 tg (< D)
-// that this lane holds, in T, rows with stride s_l; rows >= Lq are dropped.
+// Store the columns col0 + 8 dt + 2 tg (< D) of rows row0 and row0 + 8 that
+// this lane holds in `acc`, times mul0 and mul1, in T, rows with stride s_l;
+// rows >= L are dropped.
 template <typename T, int DTILES>
-__device__ __forceinline__ void store_rows(T* ob, long long s_l, const float (&acc)[DTILES][4],
-                                           const float (&l_r)[2], int row0, int Lq,
-                                           int col0, int D, int tg) {
-  float l0 = l_r[0], l1 = l_r[1];
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+__device__ __forceinline__ void store_scaled(T* ob, long long s_l, const float (&acc)[DTILES][4],
+                                             float mul0, float mul1, int row0, int L,
+                                             int col0, int D, int tg) {
   const int row1 = row0 + 8;
 #pragma unroll
   for (int dt = 0; dt < DTILES; ++dt) {
     const int col = col0 + dt * 8 + tg * 2;
     if (col < D) {
       if constexpr (sizeof(T) == 4) {
-        if (row0 < Lq)
+        if (row0 < L)
           *reinterpret_cast<float2*>(ob + (long long)row0 * s_l + col) =
-              make_float2(acc[dt][0] * inv0, acc[dt][1] * inv0);
-        if (row1 < Lq)
+              make_float2(acc[dt][0] * mul0, acc[dt][1] * mul0);
+        if (row1 < L)
           *reinterpret_cast<float2*>(ob + (long long)row1 * s_l + col) =
-              make_float2(acc[dt][2] * inv1, acc[dt][3] * inv1);
+              make_float2(acc[dt][2] * mul1, acc[dt][3] * mul1);
       } else {
-        if (row0 < Lq)
+        if (row0 < L)
           *reinterpret_cast<uint32_t*>(ob + (long long)row0 * s_l + col) =
-              pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-        if (row1 < Lq)
+              pack_bf16(acc[dt][0] * mul0, acc[dt][1] * mul0);
+        if (row1 < L)
           *reinterpret_cast<uint32_t*>(ob + (long long)row1 * s_l + col) =
-              pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+              pack_bf16(acc[dt][2] * mul1, acc[dt][3] * mul1);
       }
     }
   }
+}
+
+// Sum a row's quad-partial value over the 4 lanes of its quad.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Normalise rows row0 and row0 + 8 by their quad-reduced l (a row whose keys
+// were all masked gets 0) and store them (see store_scaled).
+template <typename T, int DTILES>
+__device__ __forceinline__ void store_rows(T* ob, long long s_l, const float (&acc)[DTILES][4],
+                                           const float (&l_r)[2], int row0, int Lq,
+                                           int col0, int D, int tg) {
+  const float l0 = quad_sum(l_r[0]), l1 = quad_sum(l_r[1]);
+  store_scaled<T, DTILES>(ob, s_l, acc, l0 > 0.f ? 1.f / l0 : 0.f, l1 > 0.f ? 1.f / l1 : 0.f,
+                          row0, Lq, col0, D, tg);
 }
 
 }  // namespace

@@ -38,6 +38,10 @@
 // log2 e). A row whose keys are all -inf gets 0, not NaN. Query rows past Lq
 // are computed on zeros and not stored. No padding copies are made.
 //
+// Training (K1's `with_lse`, pallas_flash.py:311-318): with a non-null `lse`
+// the kernel also stores each row's base-2 logsumexp m + log2(l), fp32
+// (B, H, Lq), which the backward (flash_bwd.cu) recomputes P from.
+//
 // Data movement: K/V tiles are double-buffered in shared memory and filled
 // with cp.async (16 bytes, zero-filling out-of-range rows and padded
 // columns), so the next tile's loads overlap this tile's products; all mma
@@ -49,12 +53,17 @@
 
 namespace {
 
+// The LSE of a row with no unmasked key: -MASK_VALUE of ops/flash.py (the
+// JAX package's padding value for it, pallas_flash.py:316-318, :583).
+constexpr float kLseEmpty = 0.7f * 3.4028234663852886e38f;
+
 struct FlashParams {
   const void* q;  // bf16 or fp32, as the instantiation's T
   const void* k;
   const void* v;
   const float* bias;  // (B, Lk) fp32 or nullptr
   void* o;
+  float* lse;  // (B, H, Lq) fp32 or nullptr: base-2 logsumexp of each row
   int B, H, Lq, Lk, D;
   long long q_sb, q_sl, q_sh;
   long long k_sb, k_sl, k_sh;
@@ -63,50 +72,6 @@ struct FlashParams {
   long long bias_sb;
   float scale_log2;  // softmax scale * log2(e)
 };
-
-// 16-byte global -> shared copy that bypasses registers; zero-fills when
-// !valid (src-size 0 reads nothing).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices from shared memory; lane i gives the address of one
-// 16-byte row (lanes 8m..8m+7 the rows of matrix m). Lane t receives row
-// t/4, columns 2(t%4) and 2(t%4)+1 of each matrix -- the mma A/B fragment
-// layout (ldmatrix_x4_trans gives the transposed matrices).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// rows x DP tile, row-major in shared memory with row stride DP + 8 (the +8
-// puts the 8 rows an ldmatrix phase reads on distinct banks). Columns >= D
-// and rows >= n_valid are zero-filled.
-template <int DP, int ROWS>
-__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
-                                                long long s_l, int row0, int n_valid,
-                                                int D, int tid, int nthr) {
-  constexpr int SROW = DP + 8;
-  constexpr int VPR = DP / 8;
-  for (int i = tid; i < ROWS * VPR; i += nthr) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * 8;
-    const int gr = row0 + r;
-    const bool valid = gr < n_valid && c < D;
-    cp_async16(dst + r * SROW + c, valid ? src + (long long)gr * s_l + c : src, valid);
-  }
-}
 
 // T: the I/O type (bf16 or float); DP: padded head dim; BK: keys per tile;
 // WR: 16-row groups per block; WD: warps sharing one row group (splitting d).
@@ -245,6 +210,18 @@ __global__ void __launch_bounds__(32 * WR * WD)
 
   T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
   store_rows<T, DTILES>(ob, p.o_sl, acc, l_r, q0 + wr * 16 + g, p.Lq, wd * DS, p.D, tg);
+  if (p.lse != nullptr) {
+    // m + log2(l) of the log2-domain logits; a row whose keys were all
+    // masked (l = 0) gets kLseEmpty, so that the backward's
+    // exp2(s - lse) recomputes 0 there and never inf or NaN.
+    const float l0 = quad_sum(l_r[0]), l1 = quad_sum(l_r[1]);
+    const int row0 = q0 + wr * 16 + g;
+    float* lb = p.lse + ((long long)b * p.H + h) * p.Lq;
+    if (wd == 0 && tg == 0) {
+      if (row0 < p.Lq) lb[row0] = l0 > 0.f ? m_r[0] + log2f(l0) : kLseEmpty;
+      if (row0 + 8 < p.Lq) lb[row0 + 8] = l1 > 0.f ? m_r[1] + log2f(l1) : kLseEmpty;
+    }
+  }
 }
 
 template <typename T, int DP, int BK, int WR, int WD>
@@ -278,7 +255,7 @@ cudaError_t dispatch(const FlashParams& p, cudaStream_t st) {
 // Head dims the card takes: any multiple of 8 up to 160, and 512.
 // dtype: 0 = bf16 q/k/v/o, 1 = fp32 q/k/v/o.
 extern "C" int hallo_flash_fwd(
-    const void* q, const void* k, const void* v, const void* bias, void* o,
+    const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
     int B, int H, int Lq, int Lk, int D,
     long long q_sb, long long q_sl, long long q_sh,
     long long k_sb, long long k_sl, long long k_sh,
@@ -291,6 +268,7 @@ extern "C" int hallo_flash_fwd(
   p.v = v;
   p.bias = static_cast<const float*>(bias);
   p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk; p.D = D;
   p.q_sb = q_sb; p.q_sl = q_sl; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_sl = k_sl; p.k_sh = k_sh;

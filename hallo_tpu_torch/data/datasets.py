@@ -1,0 +1,141 @@
+"""The stage-2 training dataset (the port's copy of
+hallo_tpu/data/datasets.py's `TalkingVideoDataset` and `batch_iterator`).
+
+Reference: hallo/datasets/talk_video.py:83-316. Items come from
+preprocessed .npz clips (scripts/data_preprocess.py's format: frames,
+audio_emb, face_emb, face_region and the {full, face, lip}_mask_{level}
+pyramids) and are yielded as numpy batches in the layouts
+`train.step.make_train_step` takes:
+
+    pixel_values (B, F, H, W, 3), ref_pixels (B, H, W, 3),
+    motion_pixels (B, M, H, W, 3), audio_windows (B, F, 2m+1, blocks, C),
+    face_emb (B, E), face_region (B, H, W, 3),
+    masks 4 x (full, face, lip) each (B, L_d)
+
+Clips are read synchronously; the JAX package's native C++ prefetcher
+(`data/native_prefetch.py`) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+from typing import Dict, Iterator, List
+
+import numpy as np
+
+
+class TalkingVideoDataset:
+    """Stage-2 items: a random window of `n_sample_frames` frames, the
+    motion frames before it, audio windows and mask pyramids."""
+
+    def __init__(
+        self,
+        meta_paths: List[str],
+        n_sample_frames: int = 14,
+        n_motion_frames: int = 2,
+        audio_margin: int = 2,
+        seed: int = 0,
+    ):
+        self.meta: List[dict] = []
+        for path in meta_paths:
+            with open(path) as f:
+                self.meta.extend(json.load(f))
+        self.n_sample_frames = n_sample_frames
+        self.n_motion_frames = n_motion_frames
+        self.audio_margin = audio_margin
+        self.rng = random.Random(seed)
+
+    def __len__(self) -> int:
+        return len(self.meta)
+
+    def clip_path(self, idx: int) -> str:
+        return self.meta[idx]["clip_path"]
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        return self.assemble(np.load(self.clip_path(idx)))
+
+    def assemble(self, clip) -> Dict[str, np.ndarray]:
+        """Build the item from a clip's npz contents."""
+        frames = clip["frames"]  # (T, H, W, 3) uint8
+        audio = clip["audio_emb"]  # (T, blocks, C)
+        t = min(len(frames), len(audio))
+        f, m, margin = self.n_sample_frames, self.n_motion_frames, self.audio_margin
+
+        lo = m + margin
+        hi = t - f - margin
+        start = self.rng.randrange(lo, max(hi, lo + 1))
+        end = min(start + f, t - margin)
+        idxs = np.arange(start, end)
+        if len(idxs) < f:  # pad by repeating the last frame
+            idxs = np.concatenate([idxs, np.repeat(idxs[-1:], f - len(idxs))])
+
+        def to_pm1(x):
+            return x.astype(np.float32) / 255.0 * 2.0 - 1.0
+
+        # audio windows: center +-margin gather (talk_video.py:243-250)
+        centers = idxs[:, None] + np.arange(-margin, margin + 1)[None, :]
+        centers = np.clip(centers, 0, t - 1)
+        audio_windows = audio[centers]  # (F, 2m+1, blocks, C)
+
+        ref_idx = self.rng.randrange(t)
+        motion = frames[max(start - m, 0):start]
+        if len(motion) < m:
+            motion = np.concatenate(
+                [np.repeat(frames[:1], m - len(motion), axis=0), motion], axis=0
+            )
+
+        masks = tuple(
+            tuple(clip[f"{kind}_mask_{level}"].reshape(-1).astype(np.float32)
+                  for kind in ("full", "face", "lip"))
+            for level in range(4)
+        )
+        return dict(
+            pixel_values=to_pm1(frames[idxs]),
+            ref_pixels=to_pm1(frames[ref_idx]),
+            motion_pixels=to_pm1(motion),
+            audio_windows=audio_windows.astype(np.float32),
+            face_emb=clip["face_emb"].astype(np.float32),
+            face_region=clip["face_region"].astype(np.float32),
+            masks=masks,
+        )
+
+
+def batch_iterator(
+    dataset, batch_size: int, seed: int = 0
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless shuffling batch loader: one permutation per epoch, batches of
+    `batch_size` items (a dataset smaller than a batch is sampled with
+    replacement, so every epoch yields at least one batch)."""
+    if len(dataset) == 0:
+        raise ValueError("batch_iterator: empty dataset")
+    rng = np.random.default_rng(seed)
+
+    def epoch_order():
+        order = rng.permutation(len(dataset))
+        if batch_size > len(order):
+            reps = -(-batch_size // len(order))
+            order = np.concatenate(
+                [order] + [rng.permutation(len(dataset)) for _ in range(reps - 1)]
+            )
+        return order[: len(order) - len(order) % batch_size]
+
+    def collate(items):
+        batch = {}
+        for key in items[0]:
+            if key == "masks":
+                batch[key] = tuple(
+                    tuple(np.stack([it[key][lvl][kind] for it in items]) for kind in range(3))
+                    for lvl in range(4)
+                )
+            else:
+                batch[key] = np.stack([it[key] for it in items])
+        return batch
+
+    while True:
+        items = []
+        for j in epoch_order():
+            items.append(dataset[int(j)])
+            if len(items) == batch_size:
+                yield collate(items)
+                items = []

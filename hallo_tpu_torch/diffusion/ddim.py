@@ -1,5 +1,6 @@
 """Deterministic DDIM step (counterpart of hallo_tpu/diffusion/ddim.py):
-v-prediction, eta = 0, no clipping. The tables come from the numpy
+v-prediction, eta = 0, no clipping; and the training helpers `add_noise`,
+`get_velocity` and `compute_snr`. The tables come from the numpy
 `diffusion.schedule`."""
 
 from __future__ import annotations
@@ -63,3 +64,32 @@ def ddim_step(state: DDIMState, step_index: int, model_output: torch.Tensor,
                              state.prediction_type)
     prev = alpha_prev.sqrt() * x0 + (1.0 - alpha_prev).sqrt() * eps
     return prev.to(sample.dtype)
+
+
+def _at(alphas_cumprod: torch.Tensor, timesteps: torch.Tensor, ndim: int) -> torch.Tensor:
+    """alphas_cumprod[t] in fp32, with trailing axes to broadcast over `ndim`."""
+    a = torch.as_tensor(alphas_cumprod, device=timesteps.device)[timesteps].float()
+    return a.reshape(a.shape + (1,) * (ndim - a.ndim))
+
+
+def add_noise(alphas_cumprod, sample: torch.Tensor, noise: torch.Tensor,
+              timesteps: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0) (training), computed in fp32 and
+    returned in sample's dtype. timesteps: (B,) ints; the schedule is
+    broadcast over sample's trailing axes."""
+    a = _at(alphas_cumprod, timesteps, sample.ndim)
+    return (a.sqrt() * sample.float() + (1.0 - a).sqrt() * noise.float()).to(sample.dtype)
+
+
+def get_velocity(alphas_cumprod, sample: torch.Tensor, noise: torch.Tensor,
+                 timesteps: torch.Tensor) -> torch.Tensor:
+    """The v-prediction training target (diffusers `get_velocity`)."""
+    a = _at(alphas_cumprod, timesteps, sample.ndim)
+    return (a.sqrt() * noise.float() - (1.0 - a).sqrt() * sample.float()).to(sample.dtype)
+
+
+def compute_snr(alphas_cumprod, timesteps: torch.Tensor) -> torch.Tensor:
+    """SNR(t) = alpha / (1 - alpha), for Min-SNR-gamma loss weights
+    (reference util.py:822-851)."""
+    a = _at(alphas_cumprod, timesteps, 1)
+    return a / (1.0 - a)

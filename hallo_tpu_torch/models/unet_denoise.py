@@ -14,6 +14,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from hallo_tpu_torch.config import UNetConfig
 from hallo_tpu_torch.models.layers import GroupNorm, TimestepEmbedding, timestep_embedding
@@ -117,6 +118,7 @@ class DenoisingUNet(nn.Module):
         motion_scale: Optional[torch.Tensor] = None,
         uncond_mask: Optional[torch.Tensor] = None,
         cfg_split: bool = False,
+        train: bool = False,
     ) -> torch.Tensor:
         """sample (B, F, C_in, H, W) noisy latents (B includes the CFG
         doubling); timesteps scalar or (B,); context (B, T, D) identity
@@ -126,7 +128,10 @@ class DenoisingUNet(nn.Module):
         entries (bias-masked path); cfg_split: the batch is [uncond | cond]
         and the uncond half takes the plain self-attention / zero-audio fast
         paths. Motion-frame features are fused where
-        `config.motion_frame_fusion` says ("mid" at inference, "all")."""
+        `config.motion_frame_fusion` says ("mid" at inference), or at every
+        block with `train` (the reference's training path). With
+        `config.remat` and grad mode on, each down, mid and up block is
+        recomputed in the backward pass (JAX's `maybe_remat`)."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         b, f = sample.shape[:2]
@@ -145,7 +150,7 @@ class DenoisingUNet(nn.Module):
             return ref_features[key] if (ref_features is not None and attn) else None
 
         def mfeats(key, site, attn):
-            mode = cfg.motion_frame_fusion
+            mode = "all" if train else cfg.motion_frame_fusion
             if (motion_features is None or not cfg.use_motion_module or not attn
                     or not (mode == "all" or site == mode)):
                 return None
@@ -159,18 +164,24 @@ class DenoisingUNet(nn.Module):
         def at(depth):
             return cond.at_depth(None if masks is None else masks[depth])
 
+        def run(blk, *args):
+            if cfg.remat and torch.is_grad_enabled():
+                return checkpoint(blk, *args, use_reentrant=False)
+            return blk(*args)
+
         skips = [x]
         for i, blk in enumerate(self.down_blocks):
             attn = hasattr(blk, "attentions")
-            x, states = blk(x, temb, at(i), feats(f"down_{i}", attn),
+            x, states = run(blk, x, temb, at(i), feats(f"down_{i}", attn),
                             mfeats(f"down_{i}", "down", attn))
             skips.extend(states)
-        x = self.mid_block(x, temb, at(3), feats("mid", True), mfeats("mid", "mid", True))
+        x = run(self.mid_block, x, temb, at(3), feats("mid", True),
+                mfeats("mid", "mid", True))
         n_up = cfg.layers_per_block + 1
         for i, blk in enumerate(self.up_blocks):
             attn = hasattr(blk, "attentions")
             block_skips, skips = skips[-n_up:], skips[:-n_up]
-            x = blk(x, block_skips, temb, at(3 - i), feats(f"up_{i}", attn),
+            x = run(blk, x, block_skips, temb, at(3 - i), feats(f"up_{i}", attn),
                     mfeats(f"up_{i}", "up", attn))
 
         x = F.silu(self.conv_norm_out(x, inflated=True) if cfg.use_inflated_groupnorm

@@ -29,14 +29,19 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signatures of the entry points, by source name.
-SIGNATURES = {
-    "flash_fwd": ("hallo_flash_fwd", [_P] * 5 + [_I] * 5 + [_LL] * 13 + [_F, _I, _P]),
-    "flash_int8": ("hallo_flash_int8", [_P] * 7 + [_I] * 6 + [_LL] * 4 + [_P]),
-    "temporal_attn": (
-        "hallo_temporal_attn", [_P] * 4 + [_I] * 6 + [_LL] * 3 + [_F, _P],
-    ),
+# The C entry points: (source under csrc/, C name, argument types), by the
+# name `call` takes.
+ENTRY_POINTS = {
+    "flash_fwd": ("flash_fwd", "hallo_flash_fwd",
+                  [_P] * 6 + [_I] * 5 + [_LL] * 13 + [_F, _I, _P]),
+    "flash_int8": ("flash_int8", "hallo_flash_int8", [_P] * 7 + [_I] * 6 + [_LL] * 4 + [_P]),
+    "temporal_attn": ("temporal_attn", "hallo_temporal_attn",
+                      [_P] * 4 + [_I] * 6 + [_LL] * 3 + [_F, _P]),
+    "flash_bwd_dkv": ("flash_bwd", "hallo_flash_bwd_dkv",
+                      [_P] * 9 + [_I] * 5 + [_F, _F, _I, _P]),
+    "flash_bwd_dq": ("flash_bwd", "hallo_flash_bwd_dq", [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P]),
 }
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRY_POINTS.values()))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -87,7 +92,7 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, out)
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES)) -> None:
+def build(names: Iterable[str] = SOURCES) -> None:
     """Compile the named kernels (in parallel) unless already built."""
     names = list(names)
     with _lock:
@@ -104,17 +109,18 @@ def lib(name: str) -> ctypes.CDLL:
         _finish(name, _start(name))
         _, out = _target(name)
         handle = ctypes.CDLL(out)
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(handle, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for src, fn_name, argtypes in ENTRY_POINTS.values():
+            if src == name:
+                fn = getattr(handle, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _libs[name] = handle
         return handle
 
 
-def call(name: str, *args) -> None:
-    """Launch the entry point of `csrc/<name>.cu`; raise on a CUDA error."""
-    fn_name, _ = SIGNATURES[name]
-    err = getattr(lib(name), fn_name)(*args)
+def call(entry: str, *args) -> None:
+    """Launch the C entry point `ENTRY_POINTS[entry]`; raise on a CUDA error."""
+    src, fn_name, _ = ENTRY_POINTS[entry]
+    err = getattr(lib(src), fn_name)(*args)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: cudaError {err}")

@@ -8,6 +8,11 @@ one takes the natural (B, F, L, C) layout of `temporal_attention_packed`
 
 A CPU tensor takes the plain version (`temporal_reference`); a CUDA tensor
 launches the kernel or raises. Launches are counted in `LAUNCHES`.
+
+Training: when grad mode is on and q, k or v needs a gradient, the call goes
+through `TemporalAttentionFn`, whose backward recomputes the plain version
+and differentiates it. That is JAX's `_temporal_bwd`
+(pallas_temporal.py:311-317, an XLA recompute, not a kernel).
 """
 
 from __future__ import annotations
@@ -51,12 +56,19 @@ def temporal_attention(
 ) -> torch.Tensor:
     """Self-attention over the frame axis at every site: q/k/v (B, F, L, C)
     with C = heads * d. Returns (B, F, L, C)."""
-    b, f, l, c = q.shape
-    d = c // heads
     if scale is None:
-        scale = d ** -0.5
+        scale = (q.shape[3] // heads) ** -0.5
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return TemporalAttentionFn.apply(q, k, v, heads, scale)
     if q.device.type == "cpu":
         return temporal_reference(q, k, v, heads, scale)
+    return _temporal_kernel(q, k, v, heads, scale)
+
+
+def _temporal_kernel(q, k, v, heads: int, scale: float) -> torch.Tensor:
+    """K2 on CUDA tensors."""
+    b, f, l, c = q.shape
+    d = c // heads
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"temporal attention: {name} on {t.device}, q on {q.device}")
@@ -78,3 +90,25 @@ def temporal_attention(
     )
     LAUNCHES["temporal_attn"] += 1
     return out
+
+
+class TemporalAttentionFn(torch.autograd.Function):
+    """K2's forward (the plain version on the CPU); the backward recomputes
+    `temporal_reference` on the saved inputs and differentiates it, as JAX's
+    `_temporal_bwd` does (pallas_temporal.py:311-317)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale):
+        ctx.heads, ctx.scale = heads, scale
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return temporal_reference(q, k, v, heads, scale)
+        return _temporal_kernel(q, k, v, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = temporal_reference(*inputs, ctx.heads, ctx.scale)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None, None)

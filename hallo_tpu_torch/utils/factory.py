@@ -78,9 +78,11 @@ def build_models(
     device: torch.device = torch.device("cuda"),
     dtype: torch.dtype = torch.float32,
     seed: int = 0,
+    remat: bool = False,
 ) -> HalloModels:
     """Random-initialised models from `seed`, built on `device` in `dtype`.
-    "full" is the production configuration; "tiny" the test widths."""
+    "full" is the production configuration; "tiny" the test widths. `remat`:
+    per-block gradient checkpointing of the denoiser in training."""
     if scale == "tiny":
         kw, aux = TINY_UNET_KW, TINY_AUX
     elif scale == "full":
@@ -88,7 +90,7 @@ def build_models(
     else:
         raise ValueError(scale)
     return HalloModels.create(
-        reference_unet_config(**kw), denoising_unet_config(**kw),
+        reference_unet_config(**kw), denoising_unet_config(remat=remat, **kw),
         device=device, dtype=dtype, seed=seed, **aux,
     )
 

@@ -1,9 +1,9 @@
 """hallo_tpu_torch imports torch and never the JAX package, jax or triton:
 in a fresh interpreter, importing every module of the package and running
-the tiny slice and the tiny audio path on the CPU leave none of them in
-sys.modules, and no source line of the port or of chip_smoke.py imports
-hallo_tpu. Also: the port's tiny widths are the JAX factory's, and its entry
-points default to the card."""
+the tiny slice, the tiny audio path and one tiny stage-2 train step on the
+CPU leave none of them in sys.modules, and no source line of the port or of
+chip_smoke.py imports hallo_tpu. Also: the port's tiny widths are the JAX
+factory's, and its entry points default to the card."""
 
 import dataclasses
 import inspect
@@ -36,6 +36,19 @@ proc = AudioProcessor(wav2vec_state_dict=w2v.state_dict(),
                       wav2vec_config=WAV2VEC_CONFIGS["tiny_slice"], device="cpu")
 emb, length = proc.preprocess(sys.argv[1], clip_length=4)
 assert emb.shape == (76, 2, 4) and length == 75 and np.isfinite(emb).all()
+from hallo_tpu_torch.train.state import AdamW, OptimizerConfig, TrainState, stage2_trainable, unfreeze
+from hallo_tpu_torch.train.step import make_train_step, step_generator
+trainable = unfreeze(models.modules(), stage2_trainable)
+opt = AdamW(OptimizerConfig())
+step = make_train_step(models, trainable, opt)
+rng = np.random.default_rng(0)
+batch = dict(
+    pixel_values=rng.uniform(-1, 1, (1, 2, 64, 64, 3)), ref_pixels=rng.uniform(-1, 1, (1, 64, 64, 3)),
+    motion_pixels=rng.uniform(-1, 1, (1, 2, 64, 64, 3)), audio_windows=rng.normal(size=(1, 2, 3, 2, 4)),
+    face_emb=rng.normal(size=(1, 16)), face_region=np.ones((1, 64, 64, 3)),
+    masks=tuple(tuple(np.ones((1, (8 >> d) ** 2)) for _ in range(3)) for d in range(4)))
+state, metrics = step(TrainState.create(trainable, opt), batch, step_generator(0, 0, "cpu"))
+assert state.step == 1 and np.isfinite(metrics["loss"])
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "flax", "hallo_tpu")))
 """
@@ -82,7 +95,7 @@ def test_tiny_widths_match_jax_factory():
 # JAX-package config fields the port does not implement (at their defaults,
 # which are the reference's inference settings).
 NOT_PORTED = {
-    "UNetConfig": {"remat": False, "remat_inner": False,
+    "UNetConfig": {"remat_inner": False,
                    "use_linear_projection": False, "upcast_attention": False},
     "SchedulerConfig": {"clip_sample": False},
 }

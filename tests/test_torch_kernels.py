@@ -15,7 +15,8 @@ relative L2 error 1e-2 of the case's own output (at long key lengths a
 typical |o| is ~sqrt(e / Lk), as small as 2e-2 at Lk 8192, and only the
 relative limit sees a dropped key tile or a slightly wrong scale there).
 On an H100 the relative errors read 1.7e-3 to 3.3e-3, and dropping the
-first 64 of 8192 keys reads 9.0e-2 (chip_smoke.py's kernel phase).
+first 64 of 8192 keys reads 9.0e-2 (chip_smoke.py's kernel phase). K1's LSE
+and K5's gradients have limits of their own (see their test).
 """
 
 import pytest
@@ -129,3 +130,62 @@ def test_temporal_kernel_at_packed_cases_matches_plain(cuda_device, b, f, heads,
     got = temporal.temporal_attention(q, k, v, heads=heads)
     want = temporal.temporal_reference(q.float(), k.float(), v.float(), heads)
     assert _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,lq,lk,c,with_bias,dtype",
+    [(14, 4096, 8192, 320, True, torch.bfloat16), (14, 1024, 2048, 640, True, torch.bfloat16),
+     (14, 256, 512, 1280, True, torch.bfloat16), (14, 4096, 32, 320, False, torch.bfloat16),
+     (14, 4096, 4, 320, False, torch.bfloat16), (2, 100, 150, 320, True, torch.bfloat16),
+     (2, 100, 150, 320, True, torch.float32)],
+)
+def test_flash_lse_and_backward_kernels_match_plain(cuda_device, b, lq, lk, c, with_bias, dtype):
+    """K1's LSE and K5's dQ, dK, dV at the stage-2 training shapes (14
+    frames at 512^2: levels 0-2 with the CFG-uncond bias on the ref half of
+    half the batch, audio Lk 32, identity Lk 4) and a ragged small case in
+    bf16 and fp32 I/O (fp32 tiles are rounded to bf16 on their way into
+    shared memory, as in the forward).
+    The LSE is in log2 units: max abs 1e-3 (P off by 0.07%). The gradients
+    grow with the length they sum over, so their max abs error is held
+    against 2e-2 of the plain gradient's max |value|, beside the relative
+    L2 limit. The plain versions run one sample at a time (their (H, Lq, Lk)
+    fp32 temporaries)."""
+    heads = 8
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, g = (_bf16(gen, cuda_device, b, n, c).to(dtype) for n in (lq, lk, lk, lq))
+    bias = None
+    if with_bias:
+        bias = torch.zeros(b, lk, device=cuda_device)
+        bias[: b // 2, lk // 2:] = -1e9
+    before = {n: flash.LAUNCHES[n] for n in ("flash_bwd_dkv", "flash_bwd_dq")}
+    out, lse = flash.flash_forward_packed(q, k, v, heads, bias, with_lse=True)
+    grads = flash.flash_backward(q, k, v, bias, out, lse, g, heads)
+    assert all(flash.LAUNCHES[n] == before[n] + 1 for n in before)
+    for i in range(b):
+        # the plain versions on the operands the kernels multiply (bf16)
+        qf, kf, vf, gf = (t[i:i + 1].to(torch.bfloat16).float() for t in (q, k, v, g))
+        bi = None if bias is None else bias[i:i + 1]
+        want_lse = flash.flash_lse_reference(qf, kf, heads, bi)
+        assert (lse[i:i + 1] - want_lse).abs().max().item() <= 1e-3
+        want = flash.flash_backward_reference(qf, kf, vf, bi, out[i:i + 1], lse[i:i + 1], gf,
+                                              heads)
+        for got, w in zip(grads, want):
+            err = (got[i:i + 1].float() - w.float())
+            assert err.abs().max().item() <= ATOL * w.abs().max().item()
+            assert (err.norm() / w.float().norm()).item() <= RTOL
+
+
+@pytest.mark.gpu
+def test_flash_packed_autograd_takes_the_kernels(cuda_device):
+    """With a gradient to take, `flash_attention_packed` runs K1 with its LSE
+    and both K5 passes, and no plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (_bf16(gen, cuda_device, 2, n, 320).requires_grad_() for n in (300, 600, 600))
+    before = dict(flash.LAUNCHES)
+    out = flash.flash_attention_packed(q, k, v, heads=8)
+    out.float().square().sum().backward()
+    launched = {n: flash.LAUNCHES[n] - before[n] for n in before}
+    assert launched == {**{n: 0 for n in before}, "flash_fwd_packed": 1, "flash_bwd_dkv": 1,
+                        "flash_bwd_dq": 1}
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))

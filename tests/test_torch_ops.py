@@ -140,6 +140,35 @@ def test_kernel_wrappers_reject_non_cuda_devices():
         flash.flash_attention_int8(h, h, h)
 
 
+def _int8_quantized(h):
+    q8, k8, qs, ks = flash.quantize_int8(h.detach(), h.detach(), 0.125)
+    return flash.flash_int8_quantized(q8, k8, qs, ks, h)
+
+
+@pytest.mark.parametrize("call,on_cpu", [
+    (lambda h: flash.flash_attention(h, h, h), True),
+    (lambda h: flash.flash_attention_int8(h, h, h), True),
+    (_int8_quantized, False),
+    (lambda h: flash.flash_forward_packed(h[:, 0], h[:, 0], h[:, 0], heads=2), False),
+], ids=["flash_attention", "flash_attention_int8", "flash_int8_quantized",
+        "flash_forward_packed"])
+def test_forward_only_kernels_raise_on_a_tensor_that_needs_a_gradient(call, on_cpu):
+    """K3/K4, K6 and K1's bare forward have no backward kernel: off the CPU,
+    an input that needs a gradient raises instead of returning an output
+    autograd does not track (meta tensors stand in for the card's: the
+    check comes before any launch). Under no_grad the same call goes on to
+    the device checks. On the CPU, the wrappers that have a plain version
+    carry the gradient through it."""
+    h = torch.empty(1, 2, 300, 64, device="meta", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(h)
+    with torch.no_grad(), pytest.raises(ValueError):
+        call(h)
+    if on_cpu:
+        x = torch.randn(1, 2, 30, 64, requires_grad=True)
+        call(x).sum().backward()
+        assert x.grad is not None and torch.isfinite(x.grad).all()
+
 
 def test_build_target_covers_shared_headers(tmp_path, monkeypatch):
     """A kernel's build target changes when its source or a shared header
@@ -156,3 +185,99 @@ def test_build_target_covers_shared_headers(tmp_path, monkeypatch):
     assert second != first
     (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
     assert _build._target("k")[1] not in (first, second)
+
+
+# K1's LSE output and K5 (the two-pass backward): the port's plain versions
+# against the JAX package's own functions in Pallas interpret mode, called
+# directly (`_flash_forward_packed(with_lse=True)`, `_flash_backward_packed`)
+# and not through jax.grad: no grad transpose runs beside interpret mode's
+# callbacks (ROADMAP Queue 3). fp32 throughout. The LSE is a log2 of sums of
+# O(1) terms: atol 2e-5 (summation order). The gradients are sums over up to
+# 150 keys or 100 queries of O(1) products: atol 1e-4, rtol 1e-4.
+K5_CASES = [
+    (2, 100, 150, 2, 40, "mask"),    # d 40, ragged Lq and Lk, a bias masking the ref half
+    (1, 130, 260, 2, 80, None),      # d 80, ref-concat Lk = 2 Lq, no bias
+    (2, 100, 32, 2, 40, None),       # audio cross-attention, ragged Lk 32
+    (2, 100, 4, 2, 80, "random"),    # identity cross-attention Lk 4, a bias on every key
+]
+
+
+def _k5_inputs(b, lq, lk, heads, d, bias_kind):
+    rng = np.random.default_rng(lq + lk + d)
+    c = heads * d
+    q, k, v, g = (_normal(rng, b, n, c) for n in (lq, lk, lk, lq))
+    bias = None
+    if bias_kind == "mask":
+        bias = np.zeros((b, lk), np.float32)
+        bias[:, lk // 2:] = -1e9
+        bias[0, : lk // 2] = rng.normal(size=lk // 2)
+    elif bias_kind == "random":
+        bias = rng.normal(size=(b, lk)).astype(np.float32)
+    return q, k, v, g, bias
+
+
+def _jax_k5(q, k, v, g, bias, heads, scale):
+    jb = None if bias is None else jnp.asarray(bias)
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = pallas_flash._flash_forward_packed(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jb, heads, scale, 128, 128,
+            with_lse=True)
+        grads = pallas_flash._flash_backward_packed(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jb, out, lse, jnp.asarray(g),
+            heads, scale, 128, 128)
+    return np.array(out), np.array(lse[:, :, 0, :]), [np.array(x) for x in grads]
+
+
+@pytest.mark.parametrize("b,lq,lk,heads,d,bias_kind", K5_CASES)
+def test_plain_lse_and_backward_match_pallas(b, lq, lk, heads, d, bias_kind):
+    q, k, v, g, bias = _k5_inputs(b, lq, lk, heads, d, bias_kind)
+    scale = d ** -0.5
+    out, lse, want = _jax_k5(q, k, v, g, bias, heads, scale)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    tb = None if bias is None else torch.from_numpy(bias)
+    got_lse = flash.flash_lse_reference(tq, tk, heads, tb, scale)
+    np.testing.assert_allclose(got_lse.numpy(), lse, atol=ATOL)
+    got = flash.flash_backward_reference(
+        tq, tk, tv, tb, torch.from_numpy(out), torch.from_numpy(lse), tg, heads, scale)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("b,lq,lk,heads,d,bias_kind", K5_CASES)
+def test_flash_packed_autograd_matches_plain_autograd(b, lq, lk, heads, d, bias_kind):
+    """`flash_attention_packed` with a gradient to take goes through
+    `FlashPackedFn` (the LSE forward and the plain K5 on the CPU); autograd
+    through `packed_reference` is the yardstick. The bias gets no gradient."""
+    q, k, v, g, bias = _k5_inputs(b, lq, lk, heads, d, bias_kind)
+    tb = None if bias is None else torch.from_numpy(bias).requires_grad_()
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = flash.flash_attention_packed(*leaves, heads=heads, bias=tb)
+    got = torch.autograd.grad(out, leaves + ([] if tb is None else [tb]), torch.from_numpy(g),
+                              allow_unused=True)
+    if tb is not None:
+        assert got[3] is None
+    ref = flash.packed_reference(*leaves, heads, None if tb is None else tb.detach())
+    want = torch.autograd.grad(ref, leaves, torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(), atol=ATOL)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_lse_of_a_row_with_every_key_masked_is_huge_not_minus_inf():
+    """An empty row's LSE must keep the backward's exp2(s - lse) at 0."""
+    q, k = torch.randn(1, 3, 16), torch.randn(1, 5, 16)
+    bias = torch.full((1, 5), flash.MASK_VALUE)
+    lse = flash.flash_lse_reference(q, k, 2, bias)
+    assert torch.all(lse == -flash.MASK_VALUE)
+
+
+def test_temporal_autograd_matches_plain_autograd():
+    """`TemporalAttentionFn`'s backward (the plain recompute, JAX's
+    `_temporal_bwd`) against autograd through `temporal_reference`."""
+    x = [torch.randn(2, 6, 9, 16, generator=torch.Generator().manual_seed(i)).requires_grad_()
+         for i in range(3)]
+    g = torch.randn(2, 6, 9, 16)
+    got = torch.autograd.grad(temporal.temporal_attention(*x, heads=2), x, g)
+    want = torch.autograd.grad(temporal.temporal_reference(*x, 2), x, g)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-6, rtol=1e-6)
