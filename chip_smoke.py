@@ -15,7 +15,12 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    output and K5's two backward passes at the training shapes (14 frames
    at 512^2: levels 0-2, audio and identity cross-attention), against
    autograd's backward of `F.scaled_dot_product_attention` as the library
-   call;
+   call; K8, the Winograd 3x3 conv, at the denoiser's five 3x3-conv shapes
+   (CFG batch 32 = 2 x 16 frames at 512^2), fp32 and a small non-square
+   one, against cuDNN's `F.conv2d` as the library call, and its autograd
+   entry against autograd of the direct conv; K9, the layout-anchor copy,
+   bit for bit, against `clone`. Nothing on a main path calls K8 or K9, in
+   either package: their launches are this phase's;
 3. the driving audio: the full-width wav2vec2-base (random weights from a
    seed, fp32) through `AudioProcessor.preprocess` on
    `examples/driving_audios/1.wav` (3 s), on it tiled 4x (12 s) and, under
@@ -63,7 +68,7 @@ from hallo_tpu_torch import config as cfglib
 from hallo_tpu_torch.config import AudioProjConfig, ImageProjConfig
 from hallo_tpu_torch.data.audio_processor import AudioProcessor, load_wav
 from hallo_tpu_torch.models import wav2vec as wav2vec_module
-from hallo_tpu_torch.ops import _build, flash, temporal
+from hallo_tpu_torch.ops import _build, flash, layout, temporal, winograd
 from hallo_tpu_torch.ops.attention import attention_reference
 from hallo_tpu_torch.pipelines.face_animate import (
     FaceAnimatePipeline, HalloModels, window_audio_embeddings)
@@ -102,6 +107,18 @@ LSE_ATOL = 1e-3
 # |value|: KERNEL_ATOL of it; the relative L2 limit is KERNEL_RTOL. On an
 # H100 they read 2.1e-3 to 4.2e-3 of max |plain| and 2.3e-3 to 2.4e-3
 # relative (the forward's bf16 rounding); the planted fault 0.11 to 0.50.
+
+# K8 (the Winograd conv) against its plain version from the same inputs
+# (unit-normal x, an N(0, 1) / 30 HWIO kernel, a unit-normal bias). The
+# outputs have sigma ~ 3 and reach |y| ~ 15 at C 960, where a bf16 output's
+# own rounding exceeds KERNEL_ATOL: its max abs error is held against
+# KERNEL_ATOL of max |plain|, beside the relative L2 limit KERNEL_RTOL. The
+# planted fault, the plain version with the first 64 input channels (half
+# of them below 128) dropped, must exceed the latter. Its autograd entry
+# (cuDNN backward) is held against autograd of the direct conv in fp32 with
+# TF32 off: the same convolutions in another order of sums, so 1e-4 for
+# both limits; a zeroed dk must exceed them.
+WINOGRAD_GRAD_TOL = 1e-4
 
 # The port on the card (bf16, kernels) against the same weights on the CPU
 # (fp32, plain versions) at a small input: relative L2 error of each output.
@@ -171,6 +188,16 @@ KERNELS = {
         tpu="K7", route="cuda", source="hallo_tpu_torch/csrc/temporal_attn.cu",
         replaces="hallo_tpu/ops/pallas_temporal.py:104", launched_by="kernel phase",
     ),
+    # Nothing calls K8 or K9 in either package (the op-level entry points
+    # only): their launches are the kernel phase's.
+    "winograd_conv3x3": dict(
+        tpu="K8", route="cuda", source="hallo_tpu_torch/csrc/winograd.cu",
+        replaces="hallo_tpu/ops/pallas_winograd.py:66", launched_by="kernel phase",
+    ),
+    "layout_copy": dict(
+        tpu="K9", route="cuda", source="hallo_tpu_torch/csrc/layout_copy.cu",
+        replaces="hallo_tpu/ops/layout.py:28", launched_by="kernel phase",
+    ),
     # K5's two passes, launched by the train steps (their launches: the 3
     # timed steps' total)
     "flash_bwd_dkv": dict(
@@ -188,12 +215,15 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
+LAUNCH_TABLES = (flash.LAUNCHES, temporal.LAUNCHES, winograd.LAUNCHES, layout.LAUNCHES)
+
+
 def launch_counts() -> dict:
-    return {**flash.LAUNCHES, **temporal.LAUNCHES}
+    return {k: v for table in LAUNCH_TABLES for k, v in table.items()}
 
 
 def reset_counts() -> None:
-    for table in (flash.LAUNCHES, temporal.LAUNCHES):
+    for table in LAUNCH_TABLES:
         for key in table:
             table[key] = 0
 
@@ -371,6 +401,104 @@ def kernel_cases(dev):
         ("identity", 4096, 4, 320, False),
     ):
         cases += training_cases(randn, sdpa, dev, name, 14, lq, lk, c, 8, with_bias)
+    # K8 and K9, from a generator of their own
+    gen = torch.Generator(device=dev).manual_seed(11)
+    return cases + winograd_cases(dev, gen) + layout_cases(dev, gen)
+
+
+def winograd_cases(dev, gen):
+    """K8 at the denoiser's five 3x3-conv shapes (NHWC, CFG batch 32 = 2 x 16
+    frames at 512^2; level 0's resnet, up-block and concat convs, level 1's
+    resnet and up-block), bf16; level 1's resnet in fp32; a small
+    non-square case; then the autograd entry at level 1's resnet in fp32.
+    The first is the row's main-path case."""
+
+    def conv_case(label, shape, cout, dtype=torch.bfloat16):
+        n, h, w, c = shape
+        x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        k = (torch.randn(3, 3, c, cout, generator=gen, device=dev) / 30).to(dtype)
+        b = torch.randn(cout, generator=gen, device=dev)
+        u = winograd.kernel_weights(k, dtype)
+        xc = x.permute(0, 3, 1, 2)  # NHWC memory is channels_last NCHW: no copy
+        wc = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        drop = min(64, c // 2)
+        elem = x.element_size()
+        tiles = n * (h // 2) * (w // 2)
+        direct = bound_ms(elem * (n * h * w * (c + cout) + 9 * c * cout),
+                          2.0 * 9 * n * h * w * c * cout)
+        return dict(
+            row="winograd_conv3x3", label=f"K8 {label} {tuple(shape)} -> {cout}, {str(dtype)[6:]}",
+            fn=lambda: winograd.winograd_conv3x3(x, k, b),
+            plain=lambda: winograd.winograd_reference(x, k, b),
+            library=lambda: F.conv2d(xc, wc, b.to(dtype), padding=1),
+            fault=lambda: winograd.winograd_reference(x[..., drop:], k[:, :, drop:], b),
+            fault_name=f"first {drop} input channels dropped",
+            parts=dict(kernel=lambda: winograd.winograd_launch(x, u, cout, b),
+                       weight_transform=lambda: winograd.kernel_weights(k, dtype)),
+            note=f"direct-conv bound {direct[0]:.4f} ms ({direct[1]})",
+            cost=(elem * (n * h * w * (c + cout) + 16 * c * cout), 2.0 * 16 * tiles * c * cout,
+                  0.0),
+            scaled=True, plain_iters=3)
+
+    cases = [
+        conv_case("level 0 resnet", (32, 64, 64, 320), 320),
+        conv_case("level 0 up", (32, 64, 64, 640), 320),
+        conv_case("level 0 concat", (32, 64, 64, 960), 320),
+        conv_case("level 1 resnet", (32, 32, 32, 640), 640),
+        conv_case("level 1 up", (32, 32, 32, 1280), 640),
+        conv_case("level 1 resnet", (32, 32, 32, 640), 640, torch.float32),
+        conv_case("non-square", (2, 16, 24, 40), 48),
+    ]
+    # The autograd entry: K8 forward, cuDNN backward (dx, dk, db) against
+    # autograd of the direct conv, fp32, on one cotangent.
+    shape, cout = (32, 32, 32, 640), 640
+    x, k, b = (t.requires_grad_() for t in (
+        torch.randn(*shape, generator=gen, device=dev),
+        torch.randn(3, 3, shape[-1], cout, generator=gen, device=dev) / 30,
+        torch.randn(cout, generator=gen, device=dev)))
+    g = torch.randn(*shape[:3], cout, generator=gen, device=dev)
+
+    def grads(conv):
+        return torch.autograd.grad(conv(x, k, b), (x, k, b), g)
+
+    def zeroed_dk():
+        dx, dk, db = grads(winograd.conv3x3_direct)
+        return dx, torch.zeros_like(dk), db
+
+    n, h, w, c = shape
+    direct_ops = 2.0 * 9 * n * h * w * c * cout
+    cases.append(dict(
+        row="winograd_conv3x3", label=f"K8 autograd (winograd_conv3x3_vjp) {shape} -> {cout}, "
+                                      "float32, dx dk db",
+        fn=lambda: grads(winograd.winograd_conv3x3_vjp),
+        plain=lambda: grads(winograd.conv3x3_direct), library=lambda: grads(winograd.conv3x3_direct),
+        fault=zeroed_dk, fault_name="dk zeroed",
+        cost=(4 * (2 * n * h * w * (c + cout) + n * h * w * cout + 2 * 9 * c * cout + cout),
+              2.0 * 16 * n * (h // 2) * (w // 2) * c * cout + 2 * direct_ops, 0.0),
+        scaled=True, atol=WINOGRAD_GRAD_TOL, rtol=WINOGRAD_GRAD_TOL, plain_iters=3))
+    return cases
+
+
+def layout_cases(dev, gen):
+    """K9 bit for bit: the 512^2 denoiser's level-0 activation (131072, 320)
+    bf16 (84 MB), and a ragged size whose bytes end past the last 16-byte
+    vector. The planted fault is one element changed."""
+    cases = []
+    for label, shape in (("level 0 activation", (131072, 320)), ("ragged", (4099, 37))):
+        x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+        def changed(x=x):
+            y = layout.layout_anchor_reference(x)
+            y.view(-1)[y.numel() // 2] += 1
+            return y
+
+        nbytes = x.numel() * x.element_size()
+        cases.append(dict(
+            row="layout_copy", label=f"K9 {label} {shape} bfloat16 ({nbytes} bytes)",
+            fn=lambda x=x: layout.layout_anchor(x),
+            plain=lambda x=x: layout.layout_anchor_reference(x),
+            library=lambda x=x: x.clone(), fault=changed, fault_name="one element changed",
+            fault_by="abs", atol=0.0, rtol=0.0, bitwise=True, cost=(2 * nbytes, 0.0, 0.0)))
     return cases
 
 
@@ -484,6 +612,8 @@ def phase_kernels(dev) -> dict:
         held = scaled if case.get("scaled") else err
         if not all(torch.isfinite(t).all() for t in (got if isinstance(got, tuple) else (got,))):
             raise RuntimeError(f"{label}: non-finite kernel output")
+        if case.get("bitwise") and not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise RuntimeError(f"{label}: the copy differs from its input bit for bit")
         fault = None
         if case.get("fault") is not None:
             f_err, _, f_rel = _errors(case["fault"](), want)
@@ -497,8 +627,10 @@ def phase_kernels(dev) -> dict:
             f"(rtol {rtol}) max_abs_err {err:.3e} "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
             f"bound {b_ms:.4f} ms ({b_by})")
+        if "note" in case:
+            log(f"  {case['note']}")
         if fault is not None:
-            log(f"  planted fault, first keys dropped: "
+            log(f"  planted fault, {case.get('fault_name', 'first keys dropped')}: "
                 f"{'max_abs_err' if case.get('fault_by') == 'abs' else 'rel_err'} {fault:.3e}")
         for part, part_fn in case.get("parts", {}).items():
             log(f"  {part} alone: {cuda_ms(part_fn):.4f} ms")
@@ -507,7 +639,8 @@ def phase_kernels(dev) -> dict:
                                f"({abs_name} {held}, relative {rel})")
         limit = atol if case.get("fault_by") == "abs" else rtol
         if fault is not None and not fault > limit:
-            raise RuntimeError(f"{label}: the check misses a dropped key tile ({fault})")
+            raise RuntimeError(f"{label}: the check misses the planted fault, "
+                               f"{case.get('fault_name', 'first keys dropped')} ({fault})")
         row = table.setdefault(case["row"], dict(
             max_abs_err=0.0, rel_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=b_ms, bound_by=b_by, phase_launches=0))
@@ -516,6 +649,14 @@ def phase_kernels(dev) -> dict:
         row["phase_launches"] += launched
         del got, want
         torch.cuda.empty_cache()
+    # K9 reads a flat contiguous buffer: a transposed view raises (the
+    # port's choice, instead of a copy made before the kernel).
+    try:
+        layout.layout_anchor(torch.zeros(320, 4096, dtype=torch.bfloat16, device=dev).t())
+    except ValueError as exc:
+        log(f"K9 transposed (320, 4096) view: ValueError as chosen ({exc})")
+    else:
+        raise RuntimeError("K9: a transposed view was copied instead of raising")
     return table
 
 

@@ -40,6 +40,8 @@ ENTRY_POINTS = {
     "flash_bwd_dkv": ("flash_bwd", "hallo_flash_bwd_dkv",
                       [_P] * 9 + [_I] * 5 + [_F, _F, _I, _P]),
     "flash_bwd_dq": ("flash_bwd", "hallo_flash_bwd_dq", [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P]),
+    "winograd_conv3x3": ("winograd", "hallo_winograd_conv3x3", [_P] * 4 + [_I] * 7 + [_P]),
+    "layout_copy": ("layout_copy", "hallo_layout_copy", [_P, _P, _LL, _P]),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRY_POINTS.values()))
 

@@ -16,13 +16,14 @@ typical |o| is ~sqrt(e / Lk), as small as 2e-2 at Lk 8192, and only the
 relative limit sees a dropped key tile or a slightly wrong scale there).
 On an H100 the relative errors read 1.7e-3 to 3.3e-3, and dropping the
 first 64 of 8192 keys reads 9.0e-2 (chip_smoke.py's kernel phase). K1's LSE
-and K5's gradients have limits of their own (see their test).
+and K5's gradients, K8 (the Winograd conv) and K9 (the layout copy) have
+limits of their own (see their tests).
 """
 
 import pytest
 import torch
 
-from hallo_tpu_torch.ops import attention, flash, temporal
+from hallo_tpu_torch.ops import attention, flash, layout, temporal, winograd
 
 ATOL = 2e-2
 RTOL = 1e-2
@@ -189,3 +190,100 @@ def test_flash_packed_autograd_takes_the_kernels(cuda_device):
     assert launched == {**{n: 0 for n in before}, "flash_fwd_packed": 1, "flash_bwd_dkv": 1,
                         "flash_bwd_dq": 1}
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def _winograd_inputs(dev, shape, cout, dtype, seed):
+    """x ~ N(0, 1), an HWIO kernel ~ N(0, 1) / 30 and a non-zero fp32 bias."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    k = (torch.randn(3, 3, shape[-1], cout, generator=gen, device=dev) / 30).to(dtype)
+    return x, k, torch.randn(cout, generator=gen, device=dev)
+
+
+def _scaled_close(got, want):
+    """K8's limits: the outputs reach |y| ~ 15 at C 960, where a bf16 output's
+    own rounding exceeds 2e-2, so the max abs error is held against 2e-2 of
+    max |plain|, beside the relative L2 limit 1e-2."""
+    err = got.float() - want.float()
+    return (err.abs().max().item() <= ATOL * want.float().abs().max().item()
+            and (err.norm() / want.float().norm()).item() <= RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape,cout,dtype",
+    [((4, 64, 64, 320), 320, torch.bfloat16), ((4, 32, 32, 1280), 640, torch.bfloat16),
+     ((4, 32, 32, 640), 640, torch.float32), ((2, 16, 24, 40), 48, torch.bfloat16),
+     ((2, 6, 10, 33), 70, torch.bfloat16), ((1, 2, 2, 3), 5, torch.float32)],
+    ids=["level0_res", "level1_up", "level1_res_fp32", "non_square", "odd_channels", "one_tile"],
+)
+def test_winograd_kernel_matches_plain(cuda_device, shape, cout, dtype):
+    """K8 against `winograd_reference` (the same transforms and products in
+    fp32, U rounded to x's dtype): the denoiser's level-0 and level-1
+    widths at batch 4, fp32 I/O (tiles rounded to bf16 in the kernel), a
+    non-square one and channel counts that are not multiples of 8 (the
+    kernel's element-wise patch loads and stores)."""
+    x, k, bias = _winograd_inputs(cuda_device, shape, cout, dtype, seed=8)
+    before = winograd.LAUNCHES["winograd_conv3x3"]
+    got = winograd.winograd_conv3x3(x, k, bias)
+    assert winograd.LAUNCHES["winograd_conv3x3"] == before + 1
+    assert got.shape == (*shape[:3], cout) and got.dtype == dtype
+    assert _scaled_close(got, winograd.winograd_reference(x, k, bias))
+
+
+@pytest.mark.gpu
+def test_winograd_autograd_matches_cudnn(cuda_device):
+    """`winograd_conv3x3_vjp` (K8 forward, cuDNN backward) against autograd
+    of `conv3x3_direct`, in fp32 with TF32 off: the gradients are the same
+    convolutions in another order of sums (relative L2 1e-4); the forward
+    holds K8's limits. The plain entry raises under a gradient."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        x, k, bias = _winograd_inputs(cuda_device, (4, 32, 32, 64), 96, torch.float32, seed=9)
+        g = torch.randn(4, 32, 32, 96, device=cuda_device)
+        leaves = [t.requires_grad_() for t in (x, k, bias)]
+        before = winograd.LAUNCHES["winograd_conv3x3"]
+        out = winograd.winograd_conv3x3_vjp(*leaves)
+        got = torch.autograd.grad(out, leaves, g)
+        assert winograd.LAUNCHES["winograd_conv3x3"] == before + 1
+        ref = winograd.conv3x3_direct(*leaves)
+        want = torch.autograd.grad(ref, leaves, g)
+        assert _scaled_close(out.detach(), ref.detach())
+        for a, w in zip(got, want):
+            assert a.shape == w.shape
+            assert ((a - w).norm() / w.norm()).item() <= 1e-4
+        with pytest.raises(RuntimeError, match="no backward"):
+            winograd.winograd_conv3x3(*leaves)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape,dtype,offset",
+    [((131072, 320), torch.bfloat16, 0), ((4099, 37), torch.bfloat16, 0),
+     ((3, 5, 7), torch.float32, 0), ((40, 25), torch.float32, 1)],
+    ids=["level0_activation", "ragged_bytes", "ndim3", "unaligned"],
+)
+def test_layout_copy_is_bitwise(cuda_device, shape, dtype, offset):
+    """K9: the level-0 activation of the 512^2 denoiser (84 MB), a size with
+    a byte tail past the last 16-byte vector, a 3-d tensor, and a view 4
+    bytes into its storage (the kernel's unaligned path): equal bit for bit,
+    in a new buffer. A transposed view and a tensor that needs a gradient
+    raise."""
+    n = 1
+    for d in shape:
+        n *= d
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    x = torch.randn(n + offset, generator=gen, device=cuda_device).to(dtype)[offset:].view(shape)
+    before = layout.LAUNCHES["layout_copy"]
+    got = layout.layout_anchor(x)
+    assert layout.LAUNCHES["layout_copy"] == before + 1
+    assert got.data_ptr() != x.data_ptr() and got.is_contiguous()
+    assert torch.equal(got.view(torch.uint8 if dtype == torch.bfloat16 else torch.int32),
+                       x.view(torch.uint8 if dtype == torch.bfloat16 else torch.int32))
+    with pytest.raises(ValueError, match="not contiguous"):
+        layout.layout_anchor(x.transpose(0, 1))
+    with pytest.raises(RuntimeError, match="no backward"):
+        layout.layout_anchor(x.clone().requires_grad_())
