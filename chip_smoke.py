@@ -11,7 +11,10 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    `hallo_tpu_torch/csrc/`;
 2. every hand-written kernel against its plain PyTorch version at the main
    paths' shapes, with its time, its plain version's, one PyTorch library
-   call's on the same inputs (a yardstick only) and its bound; K1's LSE
+   call's on the same inputs (a yardstick only) and its bound; K1 (the
+   Hopper kernel `flash_fwd_sm90.cu`: TMA, wgmma, warp-specialised) also
+   with its exponential floor (one ex2 per score at 16 a clock per SM) and
+   its host cost per call (tensor-map encoding, the wrapper); K1's LSE
    output and K5's two backward passes at the training shapes (14 frames
    at 512^2: levels 0-2, audio and identity cross-attention), against
    autograd's backward of `F.scaled_dot_product_attention` as the library
@@ -154,6 +157,11 @@ TRAIN_RTOL = 5e-2
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+# The exponentials' floor of an attention forward: one ex2 per score, at 16
+# a clock per SM (the SFU throughput of compute capability 9.0), at the
+# card's maximum SM clock; `preflight` fills in the card's numbers.
+EX2_PER_CLOCK_PER_SM = 16
+CARD = dict(sms=0, sm_clock_hz=0.0)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WAV = os.path.join(REPO, "examples", "driving_audios", "1.wav")
@@ -163,7 +171,7 @@ STAGE2_YAML = os.path.join(REPO, "configs", "train", "stage2.yaml")
 # whose run counts its launches.
 KERNELS = {
     "flash_fwd_packed": dict(
-        tpu="K1", route="cuda", source="hallo_tpu_torch/csrc/flash_fwd.cu",
+        tpu="K1", route="cuda", source="hallo_tpu_torch/csrc/flash_fwd_sm90.cu",
         replaces="hallo_tpu/ops/pallas_flash.py:236", launched_by="slice",
     ),
     "temporal_attn": dict(
@@ -249,6 +257,13 @@ def preflight() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    CARD.update(sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                sm_clock_hz=float(clock) * 1e6)
+    log(f"SMs {CARD['sms']}, max SM clock {clock} MHz")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     # Stated explicitly: fp32 matmuls and convolutions in full fp32 (the
@@ -273,6 +288,11 @@ def bound_ms(bytes_moved: float, bf16_ops: float, int8_ops: float = 0.0):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = bf16_ops / BF16_OPS_PER_S + int8_ops / INT8_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def exp_floor_ms(scores: float) -> float:
+    """The least time the card's SFUs take for one ex2 per score."""
+    return 1e3 * scores / (EX2_PER_CLOCK_PER_SM * CARD["sms"] * CARD["sm_clock_hz"])
 
 
 def kernel_cases(dev):
@@ -308,6 +328,7 @@ def kernel_cases(dev):
             fault=None if lk < 128 else lambda: flash.packed_reference(
                 q.float(), k[:, 64:].float(), v[:, 64:].float(), heads,
                 None if bias is None else bias[:, 64:]),
+            note=f"exp floor {exp_floor_ms(b * heads * lq * lk):.4f} ms",
             cost=attn_cost(b, heads, lq, lk, c // heads, 2, bias))
 
     half_masked = torch.zeros(2, 8192, device=dev)
@@ -321,6 +342,8 @@ def kernel_cases(dev):
         packed("K1 Lq 1 Lk 1", 1, 1, 1, 320),
         packed("K1 MASK_VALUE bias on half the keys", 2, 4096, 8192, 320,
                bias=half_masked),
+        packed("K1 level 1 d=80 B 14 Lq 1024 Lk 2048 C 640", 14, 1024, 2048, 640),
+        packed("K1 level 2 d=160 B 14 Lq 256 Lk 512 C 1280", 14, 256, 512, 1280),
     ]
     q, k, v = randn(3, 1, 4096, 512), randn(3, 1, 4096, 512), randn(3, 1, 4096, 512)
     cases.append(dict(
@@ -563,7 +586,7 @@ def training_cases(randn, sdpa, dev, name, b, lq, lk, c, heads, with_bias):
                  lambda q1, k1, b1: flash.flash_lse_reference(q1, k1, heads, b1),
                  qf, kf[:, n:], None if bias is None else bias[:, n:]),
              cost=(io + stats, 2 * gemm, 0.0), atol=LSE_ATOL, fault_by="abs",
-             plain_iters=3),
+             note=f"exp floor {exp_floor_ms(b * heads * lq * lk):.4f} ms", plain_iters=3),
         dict(row="flash_bwd_dkv", label=f"K5 dK/dV, {label}",
              fn=lambda: flash.flash_bwd_dkv(args),
              plain=lambda: plain_bwd()[1:], library=sdpa_backward,
@@ -658,6 +681,29 @@ def phase_kernels(dev) -> dict:
     else:
         raise RuntimeError("K9: a transposed view was copied instead of raising")
     return table
+
+
+def log_k1_host_cost(dev) -> None:
+    """K1's host work per call: encoding its three tensor maps (timed in the
+    library over 1000 calls' worth) and the whole wrapper call at a tiny
+    shape (host clock over 200 calls, no synchronisation inside)."""
+    q = torch.zeros(2, 4096, 320, dtype=torch.bfloat16, device=dev)
+    plan = flash.sm90_plan(*(q.unflatten(2, (8, 40)),) * 3)
+    encode = _build.lib("flash_fwd_sm90").hallo_flash_sm90_encode_ns
+    n = 1000
+    ns = encode(*(q.data_ptr(),) * 3, flash._map_args(plan), plan.block_q, plan.block_k, n)
+    if ns < 0:
+        raise RuntimeError("K1: cuTensorMapEncodeTiled failed")
+    tiny = torch.zeros(1, 1, 320, dtype=torch.bfloat16, device=dev)
+    flash.flash_attention_packed(tiny, tiny, tiny, heads=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        flash.flash_attention_packed(tiny, tiny, tiny, heads=8)
+    call_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    log(f"K1 host cost: {ns / n / 1e3:.2f} us to encode a call's three tensor maps; "
+        f"{call_us:.2f} us per wrapper call (Lq 1, Lk 1, host clock)")
 
 
 def rel_err(got, want) -> float:
@@ -1143,6 +1189,7 @@ def main() -> None:
     preflight()
     dev = torch.device("cuda", 0)
     table = phase_kernels(dev)
+    log_k1_host_cost(dev)
     torch.cuda.synchronize()
     audio = phase_audio(dev, os.path.join(_build.BUILD_DIR, "audio"))
     torch.cuda.synchronize()

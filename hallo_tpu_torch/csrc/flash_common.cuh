@@ -1,6 +1,7 @@
 // Device code shared by the flash-attention kernels for Hopper (sm_90a):
-// flash_fwd.cu (bf16 QK^T; K1, K3, K4), flash_int8.cu (int8 QK^T; K6) and
-// flash_bwd.cu (the two-pass backward; K5).
+// flash_fwd.cu (bf16 QK^T; K3, K4), flash_fwd_sm90.cu (K1: fast_exp2,
+// pack_bf16 and the store), flash_int8.cu (int8 QK^T; K6) and flash_bwd.cu
+// (the two-pass backward; K5).
 //
 // All keep one warp per 16 rows in the mma.sync fragment layout: lane
 // (g = lane / 4, tg = lane % 4) holds rows g and g + 8 of each 8-column

@@ -1,14 +1,15 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 or fp32 in and out,
 // bf16 tensor-core products, fp32 softmax and accumulation.
 //
-// Replaces three TPU kernels of hallo_tpu/ops/pallas_flash.py:
-//   K1 _attention_kernel_packed (natural (B, L, C = H*D) I/O, all heads),
-//   K3 _attention_kernel_t (heads-major, d % 128 != 0: the wav2vec2
-//      self-attention, 12 heads of d = 64, fp32 I/O), and
-//   K4 _attention_kernel (heads-major (B, H, L, D); the VAE mid-block, d = 512).
-// All are one kernel here: it reads q/k/v/o through (batch, token, head)
-// strides with the head dim contiguous, so (B, L, C) is the (B, L, H, D) view
-// and (B, H, L, D) is the same view with other strides. K3's transposed
+// Replaces two TPU kernels of hallo_tpu/ops/pallas_flash.py, both reached
+// through `flash_attention` (heads-major (B, H, L, D)):
+//   K3 _attention_kernel_t (d % 128 != 0: the wav2vec2 self-attention, 12
+//      heads of d = 64, fp32 I/O), and
+//   K4 _attention_kernel (the VAE mid-block, d = 512).
+// K1 (_attention_kernel_packed, natural (B, L, C)) has its own kernel,
+// flash_fwd_sm90.cu. This one reads q/k/v/o through (batch, token, head)
+// strides with the head dim contiguous, so (B, H, L, D) is a (B, L, H, D)
+// view with other strides. K3's transposed
 // scores and PV accumulator were a TPU MXU layout choice (d on the M axis)
 // and are not carried over.
 //
@@ -38,10 +39,6 @@
 // log2 e). A row whose keys are all -inf gets 0, not NaN. Query rows past Lq
 // are computed on zeros and not stored. No padding copies are made.
 //
-// Training (K1's `with_lse`, pallas_flash.py:311-318): with a non-null `lse`
-// the kernel also stores each row's base-2 logsumexp m + log2(l), fp32
-// (B, H, Lq), which the backward (flash_bwd.cu) recomputes P from.
-//
 // Data movement: K/V tiles are double-buffered in shared memory and filled
 // with cp.async (16 bytes, zero-filling out-of-range rows and padded
 // columns), so the next tile's loads overlap this tile's products; all mma
@@ -53,17 +50,12 @@
 
 namespace {
 
-// The LSE of a row with no unmasked key: -MASK_VALUE of ops/flash.py (the
-// JAX package's padding value for it, pallas_flash.py:316-318, :583).
-constexpr float kLseEmpty = 0.7f * 3.4028234663852886e38f;
-
 struct FlashParams {
   const void* q;  // bf16 or fp32, as the instantiation's T
   const void* k;
   const void* v;
   const float* bias;  // (B, Lk) fp32 or nullptr
   void* o;
-  float* lse;  // (B, H, Lq) fp32 or nullptr: base-2 logsumexp of each row
   int B, H, Lq, Lk, D;
   long long q_sb, q_sl, q_sh;
   long long k_sb, k_sl, k_sh;
@@ -210,18 +202,6 @@ __global__ void __launch_bounds__(32 * WR * WD)
 
   T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
   store_rows<T, DTILES>(ob, p.o_sl, acc, l_r, q0 + wr * 16 + g, p.Lq, wd * DS, p.D, tg);
-  if (p.lse != nullptr) {
-    // m + log2(l) of the log2-domain logits; a row whose keys were all
-    // masked (l = 0) gets kLseEmpty, so that the backward's
-    // exp2(s - lse) recomputes 0 there and never inf or NaN.
-    const float l0 = quad_sum(l_r[0]), l1 = quad_sum(l_r[1]);
-    const int row0 = q0 + wr * 16 + g;
-    float* lb = p.lse + ((long long)b * p.H + h) * p.Lq;
-    if (wd == 0 && tg == 0) {
-      if (row0 < p.Lq) lb[row0] = l0 > 0.f ? m_r[0] + log2f(l0) : kLseEmpty;
-      if (row0 + 8 < p.Lq) lb[row0 + 8] = l1 > 0.f ? m_r[1] + log2f(l1) : kLseEmpty;
-    }
-  }
 }
 
 template <typename T, int DP, int BK, int WR, int WD>
@@ -231,9 +211,16 @@ cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
   const size_t smem = (size_t)(BQ + 4 * BK) * (DP + 8) * sizeof(bf16) +
                       (WD > 1 ? (size_t)WR * WD * (BK / 8) * 32 * sizeof(float4) : 0);
   auto kern = flash_fwd_kernel<T, DP, BK, WR, WD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the shared-memory limit, once per device (one bit each) and instantiation
+  static unsigned long long configured = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (!(configured & (1ull << (dev & 63)))) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    configured |= 1ull << (dev & 63);
+  }
   const dim3 grid((p.Lq + BQ - 1) / BQ, p.H, p.B);
   kern<<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
@@ -255,7 +242,7 @@ cudaError_t dispatch(const FlashParams& p, cudaStream_t st) {
 // Head dims the card takes: any multiple of 8 up to 160, and 512.
 // dtype: 0 = bf16 q/k/v/o, 1 = fp32 q/k/v/o.
 extern "C" int hallo_flash_fwd(
-    const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
+    const void* q, const void* k, const void* v, const void* bias, void* o,
     int B, int H, int Lq, int Lk, int D,
     long long q_sb, long long q_sl, long long q_sh,
     long long k_sb, long long k_sl, long long k_sh,
@@ -268,7 +255,6 @@ extern "C" int hallo_flash_fwd(
   p.v = v;
   p.bias = static_cast<const float*>(bias);
   p.o = o;
-  p.lse = static_cast<float*>(lse);
   p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk; p.D = D;
   p.q_sb = q_sb; p.q_sl = q_sl; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_sl = k_sl; p.k_sh = k_sh;

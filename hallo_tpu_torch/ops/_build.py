@@ -29,11 +29,16 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 # The C entry points: (source under csrc/, C name, argument types), by the
 # name `call` takes.
 ENTRY_POINTS = {
     "flash_fwd": ("flash_fwd", "hallo_flash_fwd",
-                  [_P] * 6 + [_I] * 5 + [_LL] * 13 + [_F, _I, _P]),
+                  [_P] * 5 + [_I] * 5 + [_LL] * 13 + [_F, _I, _P]),
+    "flash_fwd_sm90": ("flash_fwd_sm90", "hallo_flash_fwd_sm90",
+                       [_P] * 6 + [_LLP] + [_I] * 5 + [_LL] * 4 + [_F] + [_I] * 5 + [_P]),
+    "flash_sm90_encode_ns": ("flash_fwd_sm90", "hallo_flash_sm90_encode_ns",
+                             [_P] * 3 + [_LLP] + [_I] * 3),
     "flash_int8": ("flash_int8", "hallo_flash_int8", [_P] * 7 + [_I] * 6 + [_LL] * 4 + [_P]),
     "temporal_attn": ("temporal_attn", "hallo_temporal_attn",
                       [_P] * 4 + [_I] * 6 + [_LL] * 3 + [_F, _P]),

@@ -1,13 +1,16 @@
-"""Flash attention: the CUDA kernels `csrc/flash_fwd.cu`,
-`csrc/flash_int8.cu` and `csrc/flash_bwd.cu`, and their plain PyTorch
-versions.
+"""Flash attention: the CUDA kernels `csrc/flash_fwd_sm90.cu`,
+`csrc/flash_fwd.cu`, `csrc/flash_int8.cu` and `csrc/flash_bwd.cu`, and their
+plain PyTorch versions.
 
-Counterpart of hallo_tpu/ops/pallas_flash.py. One kernel, `flash_fwd.cu`,
-serves its three forward layouts; it reads (batch, token, head) strides:
+Counterpart of hallo_tpu/ops/pallas_flash.py. Its three forward layouts:
 
 - `flash_attention_packed` (K1, `_attention_kernel_packed`): natural
-  (B, L, C = heads * d) tensors -- every CrossAttention of the UNets, bf16;
-- `flash_attention` heads-major (B, H, L, D): K3 (`_attention_kernel_t`)
+  (B, L, C = heads * d) tensors -- every CrossAttention of the UNets, bf16 --
+  through `flash_fwd_sm90.cu`, a Hopper kernel (TMA loads over the
+  (B, L, H, d) view, wgmma products, a producer warp beside two or three
+  consumer warpgroups); `sm90_plan` computes its tensor maps and tiles;
+- `flash_attention` heads-major (B, H, L, D), through `flash_fwd.cu`, which
+  reads (batch, token, head) strides: K3 (`_attention_kernel_t`)
   when d % 128 != 0 -- the wav2vec2 self-attention, d = 64, fp32 I/O -- and
   K4 (`_attention_kernel`) otherwise -- the VAE mid-block attention (one
   head, d = 512, bf16). The TPU's transposed scores of K3 were an MXU layout
@@ -37,6 +40,8 @@ on the card they raise when grad mode is on and an input needs a gradient
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -99,23 +104,201 @@ def _forward_only(what: str, *tensors) -> None:
                            "torch.no_grad() or on tensors that need no gradient")
 
 
-def _check(q, k, v, d):
+def _check_devices(q, k, v):
+    """q, k, v on one CUDA device, bf16 or fp32 of one type."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash attention: {name} is on {t.device}, q on {q.device}")
         if t.dtype not in _DTYPES or t.dtype != q.dtype:
             raise TypeError(f"flash attention kernel takes bf16 or fp32 q/k/v of one "
                             f"type, {name} is {t.dtype}, q {q.dtype}")
-        _check_16b(name, t)
-    if not (d % 8 == 0 and (d <= 160 or d == 512)):
-        raise ValueError(f"flash attention kernel: head dim {d} unsupported")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash attention: q, k, v on different devices")
 
 
-def _launch(q4, k4, v4, o4, bias, scale, lse=None):
-    """q4/k4/v4/o4: (B, L, H, D) views (any strides, D contiguous); lse an
-    optional fp32 (B, H, Lq) output."""
+def _check(q, k, v, d):
+    _check_devices(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_16b(name, t)
+    if not (d % 8 == 0 and (d <= 160 or d == 512)):
+        raise ValueError(f"flash attention kernel: head dim {d} unsupported")
+
+
+# K1's Hopper kernel, csrc/flash_fwd_sm90.cu: its tile configuration,
+# mirrored here to describe the TMA boxes (the kernel checks block_q,
+# block_k and stages against its instantiation at every launch).
+SM90_BOX_COLS = 64  # a box row: 64 bf16 columns, 128 bytes (the swizzle's width)
+SM90_MAX_D = 160
+SM90_STAGES = 3  # the K/V ring
+SM90_CLUSTER = 2  # CTAs that share each K/V tile (each loads 1/2, multicast)
+_TMA_MAX_STRIDE = 1 << 40
+_TMA_MAX_DIM = 1 << 32
+
+
+class TmaMap(NamedTuple):
+    """One operand's 4-d tensor map, innermost axis first: its extents, the
+    byte strides of axes 1-3, and the box (64 columns, rows, 1, 1). Columns
+    and rows past the extents read as 0. A head's own map is (d, L, H, B);
+    a wide map, (H d, L, 1, B), spans a token's heads, and head h's box j
+    starts at column h d + 64 j."""
+
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int, int, int]
+
+
+class Sm90Plan(NamedTuple):
+    """What `flash_fwd_sm90.cu` is launched with for one call."""
+
+    q: TmaMap
+    k: TmaMap
+    v: TmaMap
+    wide: bool  # q, k and v through wide maps
+    d_qk: int  # the contraction of S = Q K^T: d rounded up to 16
+    d_v: int  # the width of O = P V: d
+    boxes: int  # 64-column boxes along d
+    block_q: int  # query rows per block (64 per consumer warpgroup)
+    block_k: int  # keys per tile: 128, or 64 above two boxes (shared memory)
+    stages: int
+    grid: Tuple[int, int, int]  # (query tiles rounded up to the cluster, H, B)
+
+
+def _tma_map(name: str, shape, stride, rows: int, wide: bool) -> TmaMap:
+    """The map of a bf16 (B, L, H, d) operand with these element strides."""
+    b, l, h, d = shape
+    if stride[3] != 1:
+        raise ValueError(f"K1 kernel: {name}'s head dim is not contiguous ({stride})")
+    strides = []
+    for axis, n in ((1, l), (2, 1 if wide else h), (0, b)):
+        s = 2 * stride[axis]
+        if n == 1 and (s <= 0 or s % 16):
+            s = 16  # an axis of extent 1 is never stepped
+        if s <= 0 or s % 16 or s >= _TMA_MAX_STRIDE:
+            raise ValueError(f"K1 kernel: {name} strides {stride} unsupported "
+                             "(TMA takes positive multiples of 16 bytes below 2^40)")
+        strides.append(s)
+    if max(b, l, h * d) >= _TMA_MAX_DIM:
+        raise ValueError(f"K1 kernel: {name} shape {shape} too large for TMA")
+    dims = (h * d, l, 1, b) if wide else (d, l, h, b)
+    return TmaMap(dims, tuple(strides), (SM90_BOX_COLS, rows, 1, 1))
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(q_shape, q_stride, k_shape, k_stride, v_shape, v_stride) -> Sm90Plan:
+    """`sm90_plan` from the operands' (B, L, H, d) shapes and element
+    strides (a pure function: the main path repeats its shapes every step)."""
+    b, lq, h, d = q_shape
+    lk = k_shape[1]
+    if k_shape != (b, lk, h, d) or v_shape != k_shape:
+        raise ValueError(f"K1 kernel: q {q_shape}, k {k_shape}, v {v_shape} do not match")
+    if d % 8 or not 8 <= d <= SM90_MAX_D:
+        raise ValueError(f"K1 kernel: head dim {d} unsupported (multiples of 8 up to 160)")
+    if lq < 1 or lk < 1:
+        raise ValueError(f"K1 kernel: empty sequence (Lq {lq}, Lk {lk})")
+    d_qk = -(-d // 16) * 16
+    boxes = -(-d_qk // SM90_BOX_COLS)
+    block_k = 128 if boxes <= 2 else 64
+    wide = h > 1 and q_stride[2] == k_stride[2] == v_stride[2] == d
+    block_q = 192 if boxes == 1 else 128  # 3 consumer warpgroups of 64 rows, else 2
+    rows = block_k // SM90_CLUSTER  # a CTA's share of a K/V tile
+    tiles = -(-lq // block_q)
+    return Sm90Plan(
+        _tma_map("q", q_shape, q_stride, block_q, wide),
+        _tma_map("k", k_shape, k_stride, rows, wide),
+        _tma_map("v", v_shape, v_stride, rows, wide), wide, d_qk, d, boxes, block_q, block_k,
+        SM90_STAGES, (-(-tiles // SM90_CLUSTER) * SM90_CLUSTER, h, b))
+
+
+def _check_bf16_aligned(name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"K1 kernel: {name} must be bf16, not {t.dtype}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"K1 kernel: {name} is not 16-byte aligned")
+
+
+def sm90_plan(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor) -> Sm90Plan:
+    """The tensor maps and tiles of K1's Hopper kernel for (B, L, H, d)
+    views of bf16 q, k, v (any strides, d contiguous). Raises on what the
+    kernel does not take: another dtype, d not a multiple of 8 in 8..160,
+    strides or addresses TMA cannot read, mismatched shapes.
+
+    Q, K and V take wide maps when each token's heads are adjacent (head
+    stride d, as in the natural (B, L, C) layout, with more than one head):
+    a box then reads whole 128-byte rows, since TMA fills a box that runs
+    past the innermost extent several times slower than it copies one
+    (measured on an H100, PERF.md). The columns past d are then the next head's (or 0
+    after the last head); the kernel zeroes Q's up to d rounded to 16 in
+    shared memory, so K's meet zeros in QK^T, and V's are never read (O is
+    d wide). A non-finite K value would also reach the previous head's
+    scores (0 x inf): the inputs are finite on every path. Other layouts
+    take per-head maps, whose columns past d read as 0. Each CTA of a
+    cluster of two loads half of every K/V tile and multicasts it to both,
+    so the K/V boxes are half a tile high."""
+    for name, t in (("q", q4), ("k", k4), ("v", v4)):
+        _check_bf16_aligned(name, t)
+    return _plan(tuple(q4.shape), q4.stride(), tuple(k4.shape), k4.stride(),
+                 tuple(v4.shape), v4.stride())
+
+
+@functools.lru_cache(maxsize=1024)
+def _map_args(plan: Sm90Plan):
+    """The kernel's `maps` argument: 7 values per operand (read during the
+    call, so one array serves every call with this plan)."""
+    vals = [x for m in (plan.q, plan.k, plan.v) for x in (*m.dims, *m.strides)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _tile_bias(bias: Optional[torch.Tensor], b: int, lk: int, block_k: int):
+    """The per-key bias as K1's Hopper kernel reads it, a tile at a time:
+    (B, Lk rounded up to block_k) fp32, bias * log2(e) (MASK_VALUE x log2 e
+    overflows to -inf, as in the plain versions), -inf past Lk. One kernel
+    where Lk is a whole number of tiles (the main path), two otherwise."""
+    if bias is None:
+        return None
+    pad = -lk % block_k
+    out = torch.empty((b, lk + pad), dtype=torch.float32, device=bias.device)
+    torch.mul(bias.to(torch.float32).expand(b, lk), _LOG2E, out=out[:, :lk])
+    if pad:
+        out[:, lk:] = -math.inf
+    return out
+
+
+def _launch_sm90(plan: Sm90Plan, q, k, v, o, o_strides, bias, scale, lse=None) -> None:
+    """K1's Hopper kernel on bf16 q, k, v (their data pointers; `plan`
+    describes them), writing o (bf16 or fp32, (B, L, H) element strides
+    `o_strides`) and the optional fp32 (B, H, Lq) lse; `bias` a per-key
+    bias broadcastable to (B, Lk), or None."""
+    b, lq, h, d = plan.q.dims[3], plan.q.dims[1], plan.grid[1], plan.d_v
+    if bias is not None and bias.device != q.device:
+        raise ValueError("flash attention: bias on another device than q")
+    bias = _tile_bias(bias, b, plan.k.dims[1], plan.block_k)
+    _build.call(
+        "flash_fwd_sm90",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), _map_args(plan),
+        b, h, lq, plan.k.dims[1], d, *o_strides,
+        0 if bias is None else bias.stride(0),
+        float(scale) * _LOG2E, int(o.dtype == torch.float32), int(plan.wide),
+        plan.block_q, plan.block_k, plan.stages,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+
+
+def _heads_view(t: torch.Tensor, heads: int):
+    """The shape and element strides of t.unflatten(2, (heads, d)) for a
+    (B, L, C) tensor, without making the view."""
+    b, l, c = t.shape
+    if c % heads:
+        raise ValueError(f"flash attention: {c} channels do not split into {heads} heads")
+    sb, sl, sc = t.stride()
+    d = c // heads
+    return (b, l, heads, d), (sb, sl, d * sc, sc)
+
+
+def _launch(q4, k4, v4, o4, bias, scale):
+    """`flash_fwd.cu` (K3, K4) on (B, L, H, D) views q4/k4/v4/o4 (any
+    strides, D contiguous)."""
     b, lq, h, d = q4.shape
     lk = k4.shape[1]
     if bias is not None and bias.device != q4.device:
@@ -124,7 +307,6 @@ def _launch(q4, k4, v4, o4, bias, scale, lse=None):
         "flash_fwd",
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
         None if bias is None else bias.data_ptr(), o4.data_ptr(),
-        None if lse is None else lse.data_ptr(),
         b, h, lq, lk, d,
         *(q4.stride(i) for i in range(3)),
         *(k4.stride(i) for i in range(3)),
@@ -162,23 +344,25 @@ def flash_attention_packed(
 
 
 def flash_forward_packed(q, k, v, heads: int, bias=None, scale=None, with_lse: bool = False):
-    """K1 on CUDA tensors: (out (B, Lq, C), lse (B, H, Lq) fp32 or None).
-    Forward only: `flash_attention_packed` differentiates it."""
+    """K1 on CUDA tensors: (out (B, Lq, C), lse (B, H, Lq) fp32 or None),
+    through `flash_fwd_sm90.cu`. fp32 q, k, v are rounded to bf16 first (the
+    tensor cores' operands) and the output is fp32. Forward only:
+    `flash_attention_packed` differentiates it."""
     b, lq, c = q.shape
-    lk = k.shape[1]
     d = c // heads
     if scale is None:
         scale = d ** -0.5
     _forward_only("flash_forward_packed", q, k, v)
-    _check(q, k, v, d)
+    _check_devices(q, k, v)
     out = torch.empty((b, lq, c), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, heads, lq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-
-    def view(t):
-        return t.unflatten(2, (heads, d))
-
-    _launch(view(q), view(k), view(v), view(out), _key_bias(bias, b, lk), scale, lse)
+    if q.dtype != torch.bfloat16:
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_bf16_aligned(name, t)
+    plan = _plan(*_heads_view(q, heads), *_heads_view(k, heads), *_heads_view(v, heads))
+    _launch_sm90(plan, q, k, v, out, (lq * c, c, d), bias, scale, lse)
     LAUNCHES["flash_fwd_packed"] += 1
     return out, lse
 

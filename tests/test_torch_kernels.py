@@ -15,8 +15,9 @@ relative L2 error 1e-2 of the case's own output (at long key lengths a
 typical |o| is ~sqrt(e / Lk), as small as 2e-2 at Lk 8192, and only the
 relative limit sees a dropped key tile or a slightly wrong scale there).
 On an H100 the relative errors read 1.7e-3 to 3.3e-3, and dropping the
-first 64 of 8192 keys reads 9.0e-2 (chip_smoke.py's kernel phase). K1's LSE
-and K5's gradients, K8 (the Winograd conv) and K9 (the layout copy) have
+first 64 of 8192 keys reads 9.0e-2 (chip_smoke.py's kernel phase). K1 runs
+`csrc/flash_fwd_sm90.cu`, K3 and K4 `csrc/flash_fwd.cu`. K1's LSE and K5's
+gradients, K8 (the Winograd conv) and K9 (the layout copy) have
 limits of their own (see their tests).
 """
 
@@ -62,6 +63,74 @@ def test_flash_kernel_matches_plain(cuda_device, b, lq, lk, c, masked):
     got = flash.flash_attention_packed(q, k, v, heads=8, bias=bias)
     want = flash.packed_reference(q.float(), k.float(), v.float(), 8, bias)
     assert _close(got, want)
+
+
+def _k1_with_lse(q, k, v, heads, bias=None):
+    """K1 (`flash_fwd_sm90.cu`) with its LSE, counting that it launched once."""
+    before = flash.LAUNCHES["flash_fwd_packed"]
+    out, lse = flash.flash_forward_packed(q, k, v, heads, bias, with_lse=True)
+    assert flash.LAUNCHES["flash_fwd_packed"] == before + 1
+    return out, lse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lk", [1, 4, 32, 33, 127, 129, 8192])
+@pytest.mark.parametrize("d", [8, 40, 64, 72, 80, 128, 160])
+def test_sm90_flash_kernel_matches_plain(cuda_device, d, lk):
+    """K1's Hopper kernel over its head-dim classes (one, two and three
+    64-column boxes; d a multiple of 16 or not, so the contraction is padded
+    by TMA's zero fill) and key lengths of one key, a partial tile, one key
+    past a 32- or 128-key boundary, and many tiles, at a ragged Lq of 65:
+    the output against `packed_reference`, the LSE (log2 units, max abs
+    1e-3) against `flash_lse_reference`."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    heads = 2
+    q, k, v = (_bf16(gen, cuda_device, 2, n, heads * d) for n in (65, lk, lk))
+    out, lse = _k1_with_lse(q, k, v, heads)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    assert _close(out, flash.packed_reference(qf, kf, vf, heads))
+    assert (lse - flash.flash_lse_reference(qf, kf, heads)).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq", [1, 65, 4095])
+def test_sm90_flash_kernel_ragged_queries(cuda_device, lq):
+    """Level 0's width (8 heads of d 40) and reference-concat key length
+    (8192) at query lengths that leave one row, a part of the second
+    warpgroup, and all but one row of the last block: the inference entry
+    (`flash_attention_packed` without a gradient) and the LSE."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v = (_bf16(gen, cuda_device, 1, n, 320) for n in (lq, 8192, 8192))
+    with torch.no_grad():
+        got = flash.flash_attention_packed(q, k, v, heads=8)
+    want = flash.packed_reference(q.float(), k.float(), v.float(), 8)
+    assert _close(got, want)
+    _, lse = _k1_with_lse(q, k, v, 8)
+    assert (lse - flash.flash_lse_reference(q.float(), k.float(), 8)).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_sm90_flash_kernel_masked_keys_and_empty_rows(cuda_device, d):
+    """The main path's widths with MASK_VALUE on the second half of the keys
+    (batch 0), on every key (batch 1) and on none (batch 2). A row whose keys
+    are all masked gets output 0 and LSE -MASK_VALUE (kLseEmpty), which K5
+    reads; the others hold the plain versions' limits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    heads, lq, lk = 8, 300, 1000
+    q, k, v = (_bf16(gen, cuda_device, 3, n, heads * d) for n in (lq, lk, lk))
+    bias = torch.zeros(3, lk, device=cuda_device)
+    bias[0, lk // 2:] = flash.MASK_VALUE
+    bias[1] = flash.MASK_VALUE
+    out, lse = _k1_with_lse(q, k, v, heads, bias)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    torch.testing.assert_close(lse[1], torch.full_like(lse[1], -flash.MASK_VALUE), rtol=1e-6,
+                               atol=0)
+    for i in (0, 2):
+        qf, kf, vf = (t[i:i + 1].float() for t in (q, k, v))
+        assert _close(out[i:i + 1], flash.packed_reference(qf, kf, vf, heads, bias[i:i + 1]))
+        want_lse = flash.flash_lse_reference(qf, kf, heads, bias[i:i + 1])
+        assert (lse[i:i + 1] - want_lse).abs().max().item() <= 1e-3
 
 
 @pytest.mark.gpu
