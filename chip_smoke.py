@@ -15,10 +15,12 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    Hopper kernel `flash_fwd_sm90.cu`: TMA, wgmma, warp-specialised) also
    with its exponential floor (one ex2 per score at 16 a clock per SM) and
    its host cost per call (tensor-map encoding, the wrapper); K1's LSE
-   output and K5's two backward passes at the training shapes (14 frames
-   at 512^2: levels 0-2, audio and identity cross-attention), against
-   autograd's backward of `F.scaled_dot_product_attention` as the library
-   call; K8, the Winograd 3x3 conv, at the denoiser's five 3x3-conv shapes
+   output and K5's two backward passes (the Hopper kernels
+   `flash_bwd_sm90.cu`, each with its exponential floor, launch plan and
+   host cost per call) at the training shapes (14 frames at 512^2: levels
+   0-2, audio and identity cross-attention), against autograd's backward
+   of `F.scaled_dot_product_attention` as the library call; the host cost
+   of a whole K5 call and of a K3 call at tiny shapes; K8, the Winograd 3x3 conv, at the denoiser's five 3x3-conv shapes
    (CFG batch 32 = 2 x 16 frames at 512^2), fp32 and a small non-square
    one, against cuDNN's `F.conv2d` as the library call, and its autograd
    entry against autograd of the direct conv; K9, the layout-anchor copy,
@@ -108,8 +110,9 @@ LSE_ATOL = 1e-3
 # K5's gradients grow with the length they sum over (dV with Lq, dQ with
 # Lk), so their max abs error is held relative to the plain gradient's max
 # |value|: KERNEL_ATOL of it; the relative L2 limit is KERNEL_RTOL. On an
-# H100 they read 2.1e-3 to 4.2e-3 of max |plain| and 2.3e-3 to 2.4e-3
-# relative (the forward's bf16 rounding); the planted fault 0.11 to 0.50.
+# H100 the Hopper kernels (flash_bwd_sm90.cu) read 3.1e-3 to 5.2e-3 of max
+# |plain| and 2.34e-3 to 2.39e-3 relative (the forward's bf16 rounding);
+# the planted fault 0.11 to 0.49.
 
 # K8 (the Winograd conv) against its plain version from the same inputs
 # (unit-normal x, an N(0, 1) / 30 HWIO kernel, a unit-normal bias). The
@@ -209,11 +212,11 @@ KERNELS = {
     # K5's two passes, launched by the train steps (their launches: the 3
     # timed steps' total)
     "flash_bwd_dkv": dict(
-        tpu="K5", route="cuda", source="hallo_tpu_torch/csrc/flash_bwd.cu",
+        tpu="K5", route="cuda", source="hallo_tpu_torch/csrc/flash_bwd_sm90.cu",
         replaces="hallo_tpu/ops/pallas_flash.py:425", launched_by="train",
     ),
     "flash_bwd_dq": dict(
-        tpu="K5", route="cuda", source="hallo_tpu_torch/csrc/flash_bwd.cu",
+        tpu="K5", route="cuda", source="hallo_tpu_torch/csrc/flash_bwd_sm90.cu",
         replaces="hallo_tpu/ops/pallas_flash.py:497", launched_by="train",
     ),
 }
@@ -288,6 +291,19 @@ def bound_ms(bytes_moved: float, bf16_ops: float, int8_ops: float = 0.0):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = bf16_ops / BF16_OPS_PER_S + int8_ops / INT8_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host microseconds of one call of `fn` (host clock over n calls, no
+    synchronisation inside: what the call costs the host, not the card)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def exp_floor_ms(scores: float) -> float:
@@ -592,14 +608,26 @@ def training_cases(randn, sdpa, dev, name, b, lq, lk, c, heads, with_bias):
              plain=lambda: plain_bwd()[1:], library=sdpa_backward,
              fault=lambda: tuple(pad(t) for t in plain_bwd(n)[1:]),
              cost=(io + 2 * stats + 2 * b * c * 2 * lk, 4 * gemm, 0.0), scaled=True,
-             plain_iters=2),
+             plain_iters=2, note=f"exp floor {exp_floor_ms(b * heads * lq * lk):.4f} ms; "
+                                 f"plan {plan_note(args.plan.dkv)}",
+             host={"backward_args (checks, plan, Delta)": lambda: flash.backward_args(
+                 q, k, v, bias, out, lse, g, heads), "the dK/dV wrapper": lambda:
+                 flash.flash_bwd_dkv(args)}),
         dict(row="flash_bwd_dq", label=f"K5 dQ, {label}",
              fn=lambda: flash.flash_bwd_dq(args),
              plain=lambda: plain_bwd()[0], library=sdpa_backward,
              fault=lambda: plain_bwd(n)[0],
              cost=(io + 2 * stats + 2 * b * c * lq, 3 * gemm, 0.0), scaled=True,
-             plain_iters=2),
+             plain_iters=2, note=f"exp floor {exp_floor_ms(b * heads * lq * lk):.4f} ms; "
+                                 f"plan {plan_note(args.plan.dq)}",
+             host={"the dQ wrapper": lambda: flash.flash_bwd_dq(args)}),
     ]
+
+
+def plan_note(p) -> str:
+    """A K5 pass's tiles and grid, for the log."""
+    fields = ("block_q", "block_k", "stages", "wg_split", "splits", "q_buffers", "tiles", "grid")
+    return ", ".join(f"{f} {getattr(p, f)}" for f in fields if hasattr(p, f))
 
 
 def _errors(got, want):
@@ -657,6 +685,8 @@ def phase_kernels(dev) -> dict:
                 f"{'max_abs_err' if case.get('fault_by') == 'abs' else 'rel_err'} {fault:.3e}")
         for part, part_fn in case.get("parts", {}).items():
             log(f"  {part} alone: {cuda_ms(part_fn):.4f} ms")
+        for part, part_fn in case.get("host", {}).items():
+            log(f"  host cost of {part}: {host_us(part_fn):.1f} us a call")
         if not (held <= atol and rel <= rtol):
             raise RuntimeError(f"{label}: kernel disagrees with plain version "
                                f"({abs_name} {held}, relative {rel})")
@@ -704,6 +734,20 @@ def log_k1_host_cost(dev) -> None:
     torch.cuda.synchronize()
     log(f"K1 host cost: {ns / n / 1e3:.2f} us to encode a call's three tensor maps; "
         f"{call_us:.2f} us per wrapper call (Lq 1, Lk 1, host clock)")
+
+
+def log_small_call_host_costs(dev) -> None:
+    """The host work of a whole K5 call (`flash_backward`: checks, plan,
+    Delta, both passes) and of a K3 call (`flash_attention`, its launch
+    arguments cached by shape), at tiny shapes (host clock, 200 calls)."""
+    tiny = torch.zeros(1, 1, 320, dtype=torch.bfloat16, device=dev)
+    out, lse = flash.flash_forward_packed(tiny, tiny, tiny, 8, with_lse=True)
+    k5_us = host_us(lambda: flash.flash_backward(tiny, tiny, tiny, None, out, lse, tiny, 8),
+                    200)
+    q3 = torch.zeros(1, 12, 8, 64, device=dev)
+    k3_us = host_us(lambda: flash.flash_attention(q3, q3, q3), 200)
+    log(f"K5 host cost: {k5_us:.2f} us per flash_backward call (Lq 1, Lk 1, both passes); "
+        f"K3 host cost: {k3_us:.2f} us per flash_attention call (fp32, L 8, host clock)")
 
 
 def rel_err(got, want) -> float:
@@ -1190,6 +1234,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     table = phase_kernels(dev)
     log_k1_host_cost(dev)
+    log_small_call_host_costs(dev)
     torch.cuda.synchronize()
     audio = phase_audio(dev, os.path.join(_build.BUILD_DIR, "audio"))
     torch.cuda.synchronize()

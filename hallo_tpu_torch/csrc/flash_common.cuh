@@ -1,7 +1,7 @@
 // Device code shared by the flash-attention kernels for Hopper (sm_90a):
-// flash_fwd.cu (bf16 QK^T; K3, K4), flash_fwd_sm90.cu (K1: fast_exp2,
-// pack_bf16 and the store), flash_int8.cu (int8 QK^T; K6) and flash_bwd.cu
-// (the two-pass backward; K5).
+// flash_fwd.cu (bf16 QK^T; K3, K4) and flash_int8.cu (int8 QK^T; K6);
+// flash_fwd_sm90.cu (K1) and flash_bwd_sm90.cu (K5) take fast_exp2,
+// pack_bf16 and the store.
 //
 // All keep one warp per 16 rows in the mma.sync fragment layout: lane
 // (g = lane / 4, tg = lane % 4) holds rows g and g + 8 of each 8-column
@@ -9,8 +9,7 @@
 // row g + 8). In the forwards the rows are queries and what follows the
 // scores is the same in both: the online base-2 softmax in fp32, P and V as
 // bf16 into mma.sync with fp32 accumulation, and the normalised store in the
-// output's type (bf16 or fp32). The backward uses the same products
-// (`pv_step` with other operands) and stores.
+// output's type (bf16 or fp32).
 
 #pragma once
 

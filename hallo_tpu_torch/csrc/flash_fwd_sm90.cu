@@ -7,8 +7,8 @@
 // (B, L, C = H * d) bf16 tensors, read as the (B, L, H, d) view with its own
 // strides, an optional fp32 per-key bias (B, Lk) in natural-log units, and
 // with `lse` the base-2 logsumexp of each row (fp32 (B, H, Lq)), which the
-// backward (flash_bwd.cu, K5) recomputes P from. The output is normalised
-// and stored in the natural layout, bf16 or fp32 (`out_f32`; the wrapper
+// backward (flash_bwd_sm90.cu, K5) recomputes P from. The output is
+// normalised and stored in the natural layout, bf16 or fp32 (`out_f32`; the wrapper
 // rounds fp32 inputs to bf16 first, as the tensor cores take them).
 //
 // What bounds it on this card: at the main-path shapes (Lq 4096..64, Lk up
@@ -32,8 +32,9 @@
 //   (ops/flash.py: sm90_plan) the maps span its H d columns and a box reads
 //   whole 128-byte rows, because TMA fills a box that runs past the
 //   innermost extent several times slower than it copies one; the
-//   neighbour head's columns that come along are zeroed in Q's shared copy
-//   up to d rounded to 16, so K's meet zeros in QK^T, and V's are not read.
+//   neighbour head's columns that come along are zeroed in Q's and in each
+//   K tile's shared copy up to d rounded to 16, so that no value of head
+//   h + 1 (not even an inf) reaches head h's scores, and V's are not read.
 //   Otherwise each head has its own map and the columns past d read as 0.
 //   Query rows past Lq and keys past Lk read as 0 (keys masked to -inf).
 //   No copy is made. The per-key bias comes a tile at a time with K, by a
@@ -351,23 +352,33 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(Tiles<DQK>::k
       if (lane == 0)
         for (int c = 0; c < kCluster; ++c) mbar_arrive_cluster(bar, c);
     };
+    // Under a wide map the contraction's pad columns d .. d + 7 of Q and K
+    // are the next head's: both are zeroed in shared memory (one 16-byte
+    // chunk a row, at its swizzled place), so head h's scores never read
+    // head h + 1's values (an inf there would give 0 x inf). Per-head maps
+    // read them as 0.
+    constexpr int kChunk = (DV % 64) / 8;
+    const bool pad = DQK > DV && p.wide;
     mbar_wait(q_full, 0);
-    if constexpr (DQK > DV) {
-      // Q's columns d .. d + 7 (the contraction's pad) are the neighbour
-      // head's under a wide map: zero this warpgroup's 64 rows of them
-      // (one 16-byte chunk a row, at its swizzled place), as K's columns
-      // there are the neighbour's too
-      constexpr int kChunk = (DV % 64) / 8;
-      if (tid < 64) {
-        const uint32_t at = qa + (DV / 64) * T::kQBox + tid * 128 + ((kChunk ^ (tid & 7)) * 16);
-        asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(at), "r"(0) : "memory");
-      }
+    if (pad) {
+      zero_chunk_rows(qa + (DV / 64) * T::kQBox, kChunk, 64, tid, 128);
       fence_proxy_async();
       named_sync(kBarSched + kConsumers + cw, 128);
     }
+    // every consumer warpgroup zeroes the whole K tile of stage s (the same
+    // zeros: the tile is shared) before its own products read it
+    auto wait_k = [&](int t) {
+      const int s = t % ST;
+      mbar_wait(k_full(s), (t / ST) & 1);
+      if (pad) {
+        zero_chunk_rows(sK + s * T::kKVBytes + (DV / 64) * T::kKVBox, kChunk, BN, tid, 128);
+        fence_proxy_async();
+        named_sync(kBarSched + kConsumers + cw, 128);
+      }
+    };
 
     // tile 0: S_0 only
-    mbar_wait(k_full(0), 0);
+    wait_k(0);
     turn_begin();
     issue_s(0);
     gmma_commit();
@@ -385,7 +396,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(Tiles<DQK>::k
     // while the PV product runs
     for (int t = 1; t < nkv; ++t) {
       const int s = t % ST, sp = (t - 1) % ST;
-      mbar_wait(k_full(s), (t / ST) & 1);
+      wait_k(t);
       mbar_wait(v_full(sp), ((t - 1) / ST) & 1);
       turn_begin();
       issue_s(s);
@@ -445,61 +456,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(Tiles<DQK>::k
 }
 
 // ---- host ----
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// One operand's map: 4 extents (innermost first), the byte strides of axes
-// 1-3, and a box of 64 columns x `rows` rows.
-bool encode_map(CUtensorMap* map, const void* ptr, const long long* dims,
-                const long long* strides, int rows) {
-  EncodeTiledFn fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t ext[4] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1], (cuuint64_t)dims[2],
-                             (cuuint64_t)dims[3]};
-  const cuuint64_t st[3] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1],
-                            (cuuint64_t)strides[2]};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), ext, st, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Set a kernel's shared-memory limit once per device: `done` is the
-// instantiation's own set of devices (one bit each).
-template <typename K>
-cudaError_t configure_once(K kern, int smem, unsigned long long& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) done |= bit;
-  return err;
-}
 
 struct Launch {
   const void *q, *k, *v;

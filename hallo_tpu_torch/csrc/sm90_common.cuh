@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: TMA tensor
 // loads with mbarrier completion, warpgroup matrix products (wgmma) with
 // operands in 128-byte-swizzled shared memory, named barriers and register
-// reallocation between warpgroups. flash_fwd_sm90.cu (K1) uses them.
+// reallocation between warpgroups, and the host's tensor-map encoding.
+// flash_fwd_sm90.cu (K1) and flash_bwd_sm90.cu (K5) use them.
 //
 // Shared-memory operand layout (what a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B and a box of 64 bf16 columns writes): each row
@@ -20,6 +21,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -136,6 +138,19 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Zero one 16-byte chunk (columns 8 chunk .. 8 chunk + 7) of rows i,
+// i + step, ... < rows of a 128-byte-swizzled box at `box` (1024-byte
+// aligned): the contraction's pad columns past d, which under a wide map
+// hold the next head's values. The caller fences (fence_proxy_async) and
+// synchronises before a wgmma reads them.
+__device__ __forceinline__ void zero_chunk_rows(uint32_t box, int chunk, int rows, int i,
+                                                int step) {
+  for (int r = i; r < rows; r += step) {
+    const uint32_t at = box + r * 128 + ((chunk ^ (r & 7)) * 16);
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(at), "r"(0) : "memory");
+  }
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
                : "memory");
@@ -222,6 +237,19 @@ struct GmmaRS;
 
 // One specialisation per N (the instruction names N and lists N / 2
 // accumulator registers).
+template <>
+struct GmmaSS<32> {
+  static __device__ __forceinline__ void run(float (&d)[4][4], uint64_t da, uint64_t db,
+                                             uint32_t scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : HF4(d, 0), HF4(d, 1), HF4(d, 2), HF4(d, 3)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 template <>
 struct GmmaSS<64> {
   static __device__ __forceinline__ void run(float (&d)[8][4], uint64_t da, uint64_t db,
@@ -581,5 +609,62 @@ struct GmmaRS<160> {
 };
 
 #undef HF4
+
+// ---- host: tensor maps and launch attributes ----
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// One operand's map: 4 extents (innermost first), the byte strides of axes
+// 1-3, and a box of 64 columns x `rows` rows.
+bool encode_map(CUtensorMap* map, const void* ptr, const long long* dims,
+                const long long* strides, int rows) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t ext[4] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1], (cuuint64_t)dims[2],
+                             (cuuint64_t)dims[3]};
+  const cuuint64_t st[3] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1],
+                            (cuuint64_t)strides[2]};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), ext, st, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Set a kernel's shared-memory limit once per device: `done` is the
+// instantiation's own set of devices (one bit each).
+template <typename K>
+cudaError_t configure_once(K kern, int smem, unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
 
 }  // namespace

@@ -13,6 +13,7 @@ for it raises.
 from __future__ import annotations
 
 import math
+import os
 import wave
 from fractions import Fraction
 from typing import Mapping, Optional, Tuple
@@ -71,7 +72,9 @@ class AudioProcessor:
 
     `wav2vec_state_dict` carries HF Wav2Vec2Model keys (the reference's
     wav2vec2-base-960h checkpoint loads as it is, strictly) for a model of
-    `wav2vec_config` (wav2vec2-base by default), built on `device`."""
+    `wav2vec_config` (wav2vec2-base by default), built on `device`.
+    `audio_separator_model_path` naming a file that does not exist means no
+    vocal separation; an existing file raises NotImplementedError."""
 
     def __init__(
         self,
@@ -83,7 +86,10 @@ class AudioProcessor:
         audio_separator_model_path: Optional[str] = None,
         only_last_features: bool = False,
     ):
-        if audio_separator_model_path:
+        if audio_separator_model_path and os.path.isfile(audio_separator_model_path):
+            # an absent separator file means no separation, as in
+            # hallo_tpu/data/audio_processor.py:85-112; an existing one
+            # needs the ONNX executor, which the port does not have yet
             raise NotImplementedError(
                 "vocal separation needs the ONNX executor, which the port does not have yet"
             )

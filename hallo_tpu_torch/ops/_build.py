@@ -42,9 +42,10 @@ ENTRY_POINTS = {
     "flash_int8": ("flash_int8", "hallo_flash_int8", [_P] * 7 + [_I] * 6 + [_LL] * 4 + [_P]),
     "temporal_attn": ("temporal_attn", "hallo_temporal_attn",
                       [_P] * 4 + [_I] * 6 + [_LL] * 3 + [_F, _P]),
-    "flash_bwd_dkv": ("flash_bwd", "hallo_flash_bwd_dkv",
-                      [_P] * 9 + [_I] * 5 + [_F, _F, _I, _P]),
-    "flash_bwd_dq": ("flash_bwd", "hallo_flash_bwd_dq", [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P]),
+    "flash_bwd_dkv": ("flash_bwd_sm90", "hallo_flash_bwd_dkv_sm90",
+                      [_P] * 9 + [_LLP, _LLP, _I, _F, _F, _P]),
+    "flash_bwd_dq": ("flash_bwd_sm90", "hallo_flash_bwd_dq_sm90",
+                     [_P] * 9 + [_LLP, _LLP, _I, _F, _F, _P]),
     "winograd_conv3x3": ("winograd", "hallo_winograd_conv3x3", [_P] * 4 + [_I] * 7 + [_P]),
     "layout_copy": ("layout_copy", "hallo_layout_copy", [_P, _P, _LL, _P]),
 }
@@ -125,9 +126,15 @@ def lib(name: str) -> ctypes.CDLL:
         return handle
 
 
+_fns: Dict[str, ctypes._CFuncPtr] = {}  # bound entry points, by `call`'s name
+
+
 def call(entry: str, *args) -> None:
     """Launch the C entry point `ENTRY_POINTS[entry]`; raise on a CUDA error."""
-    src, fn_name, _ = ENTRY_POINTS[entry]
-    err = getattr(lib(src), fn_name)(*args)
+    fn = _fns.get(entry)
+    if fn is None:
+        src, fn_name, _ = ENTRY_POINTS[entry]
+        fn = _fns[entry] = getattr(lib(src), fn_name)
+    err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"{fn_name} failed: cudaError {err}")
+        raise RuntimeError(f"{fn.__name__} failed: cudaError {err}")

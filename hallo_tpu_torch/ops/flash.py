@@ -1,6 +1,6 @@
 """Flash attention: the CUDA kernels `csrc/flash_fwd_sm90.cu`,
-`csrc/flash_fwd.cu`, `csrc/flash_int8.cu` and `csrc/flash_bwd.cu`, and their
-plain PyTorch versions.
+`csrc/flash_fwd.cu`, `csrc/flash_int8.cu` and `csrc/flash_bwd_sm90.cu`, and
+their plain PyTorch versions.
 
 Counterpart of hallo_tpu/ops/pallas_flash.py. Its three forward layouts:
 
@@ -25,7 +25,8 @@ Training: when grad mode is on and q, k or v needs a gradient,
 `flash_attention_packed` runs `FlashPackedFn` (JAX's `_flash_packed`
 custom_vjp): K1's forward that also stores the base-2 logsumexp, and K5
 (`_dkv_kernel_packed`, `_dq_kernel_packed`) as the two passes of
-`csrc/flash_bwd.cu` in its backward (`flash_backward`). The bias gets no
+`csrc/flash_bwd_sm90.cu` in its backward (`flash_backward`), a Hopper
+kernel like K1's whose launches `bwd_plan` computes. The bias gets no
 gradient, as in JAX. Without a gradient to take, the inference path is
 unchanged.
 
@@ -116,14 +117,6 @@ def _check_devices(q, k, v):
         raise ValueError("flash attention: q, k, v on different devices")
 
 
-def _check(q, k, v, d):
-    _check_devices(q, k, v)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_16b(name, t)
-    if not (d % 8 == 0 and (d <= 160 or d == 512)):
-        raise ValueError(f"flash attention kernel: head dim {d} unsupported")
-
-
 # K1's Hopper kernel, csrc/flash_fwd_sm90.cu: its tile configuration,
 # mirrored here to describe the TMA boxes (the kernel checks block_q,
 # block_k and stages against its instantiation at every launch).
@@ -161,6 +154,9 @@ class Sm90Plan(NamedTuple):
     block_k: int  # keys per tile: 128, or 64 above two boxes (shared memory)
     stages: int
     grid: Tuple[int, int, int]  # (query tiles rounded up to the cluster, H, B)
+    # the operands whose contraction pad (columns d .. d_qk, the next head's
+    # under a wide map) the kernel zeroes in shared memory
+    zeroed: Tuple[str, ...]
 
 
 def _tma_map(name: str, shape, stride, rows: int, wide: bool) -> TmaMap:
@@ -206,7 +202,8 @@ def _plan(q_shape, q_stride, k_shape, k_stride, v_shape, v_stride) -> Sm90Plan:
         _tma_map("q", q_shape, q_stride, block_q, wide),
         _tma_map("k", k_shape, k_stride, rows, wide),
         _tma_map("v", v_shape, v_stride, rows, wide), wide, d_qk, d, boxes, block_q, block_k,
-        SM90_STAGES, (-(-tiles // SM90_CLUSTER) * SM90_CLUSTER, h, b))
+        SM90_STAGES, (-(-tiles // SM90_CLUSTER) * SM90_CLUSTER, h, b),
+        ("q", "k") if wide and d_qk > d else ())
 
 
 def _check_bf16_aligned(name: str, t: torch.Tensor) -> None:
@@ -226,14 +223,13 @@ def sm90_plan(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor) -> Sm90Plan:
     stride d, as in the natural (B, L, C) layout, with more than one head):
     a box then reads whole 128-byte rows, since TMA fills a box that runs
     past the innermost extent several times slower than it copies one
-    (measured on an H100, PERF.md). The columns past d are then the next head's (or 0
-    after the last head); the kernel zeroes Q's up to d rounded to 16 in
-    shared memory, so K's meet zeros in QK^T, and V's are never read (O is
-    d wide). A non-finite K value would also reach the previous head's
-    scores (0 x inf): the inputs are finite on every path. Other layouts
-    take per-head maps, whose columns past d read as 0. Each CTA of a
-    cluster of two loads half of every K/V tile and multicasts it to both,
-    so the K/V boxes are half a tile high."""
+    (measured on an H100, PERF.md). The columns past d are then the next
+    head's (or 0 after the last head); the kernel zeroes Q's and K's up to d
+    rounded to 16 in shared memory, so no value of head h + 1 (not even an
+    inf) reaches head h's scores, and V's are never read (O is d wide).
+    Other layouts take per-head maps, whose columns past d read as 0. Each
+    CTA of a cluster of two loads half of every K/V tile and multicasts it
+    to both, so the K/V boxes are half a tile high."""
     for name, t in (("q", q4), ("k", k4), ("v", v4)):
         _check_bf16_aligned(name, t)
     return _plan(tuple(q4.shape), q4.stride(), tuple(k4.shape), k4.stride(),
@@ -296,27 +292,28 @@ def _heads_view(t: torch.Tensor, heads: int):
     return (b, l, heads, d), (sb, sl, d * sc, sc)
 
 
-def _launch(q4, k4, v4, o4, bias, scale):
-    """`flash_fwd.cu` (K3, K4) on (B, L, H, D) views q4/k4/v4/o4 (any
-    strides, D contiguous)."""
-    b, lq, h, d = q4.shape
-    lk = k4.shape[1]
-    if bias is not None and bias.device != q4.device:
-        raise ValueError("flash attention: bias on another device than q")
-    _build.call(
-        "flash_fwd",
-        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-        None if bias is None else bias.data_ptr(), o4.data_ptr(),
-        b, h, lq, lk, d,
-        *(q4.stride(i) for i in range(3)),
-        *(k4.stride(i) for i in range(3)),
-        *(v4.stride(i) for i in range(3)),
-        *(o4.stride(i) for i in range(3)),
-        0 if bias is None else bias.stride(0),
-        float(scale) * _LOG2E,
-        _DTYPES[q4.dtype],
-        torch.cuda.current_stream(q4.device).cuda_stream,
-    )
+@functools.lru_cache(maxsize=1024)
+def _heads_major_args(q_shape, q_stride, k_shape, k_stride, v_shape, v_stride, dtype):
+    """`flash_fwd.cu`'s (K3, K4) integer arguments for heads-major (B, H, L,
+    D) q, k, v with these element strides and a fresh contiguous output:
+    (B, H, Lq, Lk, D, then the (batch, token, head) strides of q, k, v and
+    the output). Checks what the shapes and strides alone decide (a pure
+    function: the audio path repeats its shapes every layer)."""
+    b, h, lq, d = q_shape
+    lk = k_shape[2]
+    if k_shape != (b, h, lk, d) or v_shape != k_shape:
+        raise ValueError(f"flash attention: q {q_shape}, k {k_shape}, v {v_shape} do not match")
+    if not (d % 8 == 0 and (d <= 160 or d == 512)):
+        raise ValueError(f"flash attention kernel: head dim {d} unsupported")
+    per16 = 16 // dtype.itemsize
+    for name, shape, stride in (("q", q_shape, q_stride), ("k", k_shape, k_stride),
+                                ("v", v_shape, v_stride)):
+        steps = [st for st, n in zip(stride[:-1], shape[:-1]) if n > 1]
+        if stride[-1] != 1 or any(st % per16 for st in steps):
+            raise ValueError(f"flash attention: {name} strides {stride} unsupported")
+    o_strides = (h * lq * d, d, lq * d)
+    return (b, h, lq, lk, d, *(t[i] for t in (q_stride, k_stride, v_stride) for i in (0, 2, 1)),
+            *o_strides)
 
 
 def flash_attention_packed(
@@ -395,7 +392,7 @@ def flash_lse_reference(q, k, heads: int, bias=None, scale=None) -> torch.Tensor
 
 
 def flash_backward_reference(q, k, v, bias, out, lse, g, heads: int, scale=None):
-    """Plain version of K5: the two-pass recurrence of `csrc/flash_bwd.cu` in
+    """Plain version of K5: the recurrence of `csrc/flash_bwd_sm90.cu` in
     fp32 torch ops, from the forward's output `out` and base-2 `lse`
     (B, H, Lq) and the output's gradient `g`. Returns (dq, dk, dv) in the
     dtypes of q, k, v. The bias gets no gradient."""
@@ -415,9 +412,188 @@ def flash_backward_reference(q, k, v, bias, out, lse, g, heads: int, scale=None)
     return merge(dq, q), merge(dk, k), merge(dv, v)
 
 
+# K5's Hopper kernels, csrc/flash_bwd_sm90.cu: their tile configuration,
+# mirrored here to describe the TMA boxes and the grid (the kernels check
+# the tiles and stages against their instantiation at every launch).
+BWD_CONSUMERS = 2  # consumer warpgroups of 64 rows
+BWD_DKV_KEYS = 64 * BWD_CONSUMERS  # keys per dK/dV CTA
+BWD_DKV_STAGES = 3  # the Q/dO ring of the dK/dV pass
+BWD_DQ_ROWS = 64 * BWD_CONSUMERS  # queries per dQ tile
+BWD_STAT_ROWS = 64  # LSE and Delta are padded to a multiple of this
+H100_SMS = 132
+
+
+class DkvPlan(NamedTuple):
+    """The dK/dV pass: a CTA owns `block_k` keys and walks `tiles` query
+    tiles of `block_q` (its split of the query range) through a ring of
+    `stages`; Q and dO boxes are `block_q` rows, K and V boxes `block_k`.
+    With `wg_split` (Lk <= 64) both consumer warpgroups take the same 64
+    keys and alternate query tiles. With `splits` > 1 each split writes fp32
+    partials that the wrapper sums in order."""
+
+    q: TmaMap
+    k: TmaMap
+    v: TmaMap
+    g: TmaMap
+    block_q: int
+    block_k: int
+    stages: int
+    wg_split: bool
+    splits: int
+    tiles: int
+    grid: Tuple[int, int, int]  # (key tiles x splits, H, B)
+
+
+class DqPlan(NamedTuple):
+    """The dQ pass: a CTA walks `tiles` query tiles of `block_q` rows; K
+    and V stream through a ring of `stages` tiles of `block_k` keys, each CTA
+    of a cluster of two loading half (boxes of block_k / 2 rows) and
+    multicasting it; Q and dO take `q_buffers` buffers."""
+
+    q: TmaMap
+    k: TmaMap
+    v: TmaMap
+    g: TmaMap
+    block_q: int
+    block_k: int
+    stages: int
+    q_buffers: int
+    tiles: int
+    grid: Tuple[int, int, int]  # (CTAs along the queries, rounded to the cluster, H, B)
+
+
+class Sm90BwdPlan(NamedTuple):
+    """What `flash_bwd_sm90.cu` is launched with for one backward call."""
+
+    wide: bool  # q, k, v, dO through wide maps (their pad zeroed in shared memory)
+    d_qk: int  # the contraction of S and dP: d rounded up to 16
+    d_v: int  # the width of dQ, dK, dV: d
+    boxes: int
+    lq_pad: int  # LSE and Delta rows: Lq rounded up to BWD_STAT_ROWS
+    lk_pad: int  # the tiled bias's row: Lk rounded up to BWD_DKV_KEYS
+    dkv: DkvPlan
+    dq: DqPlan
+    zeroed: Tuple[str, ...]  # as Sm90Plan's: the operands of S and dP
+
+
+def _dkv_splits(nq: int, base: int, wg_split: bool, sms: int) -> Tuple[int, int]:
+    """(splits, tiles per split) of the dK/dV pass's nq query tiles over
+    `base` CTAs (key tiles x heads x batch), one CTA an SM: the split whose
+    waves of CTAs, each some tiles long plus about two tiles' worth of fixed
+    cost, end first (the fewest splits among equals). Without idle SMs, one."""
+    if base >= sms:
+        return 1, nq
+    best = None
+    for splits in range(1, nq + 1):
+        tiles = -(-nq // splits)
+        if -(-nq // tiles) != splits:
+            continue  # the same tiles with fewer splits was counted
+        per_wg = -(-tiles // 2) if wg_split else tiles
+        cost = -(-splits * base // sms) * (per_wg + 2)
+        if best is None or cost < best[0]:
+            best = (cost, splits, tiles)
+    return best[1], best[2]
+
+
+def _dq_tiles(q_tiles: int, key_tiles: int, rows: int, sms: int) -> int:
+    """Query tiles per dQ CTA: one, unless the CTA has at most two key tiles
+    to walk (short Lk), when its fixed latency would run alone: then the
+    fewest CTAs along the queries (a multiple of the cluster) that still give
+    two CTAs an SM over the `rows` (heads x batch) and leave at most an eighth
+    of the CTAs' tiles past Lq, each with an even share of the tiles."""
+    if key_tiles > 2:
+        return 1
+    for ctas in range(SM90_CLUSTER, q_tiles + 1, SM90_CLUSTER):
+        per = -(-q_tiles // ctas)
+        if ctas * rows >= 2 * sms and (ctas * per - q_tiles) * 8 <= q_tiles:
+            return per
+    return 1
+
+
+@functools.lru_cache(maxsize=1024)
+def _bwd_plan(q_shape, q_stride, k_shape, k_stride, v_shape, v_stride, g_shape, g_stride,
+              sms: int = H100_SMS) -> Sm90BwdPlan:
+    """`bwd_plan` from the operands' (B, L, H, d) shapes and element strides
+    (a pure function: the main path repeats its shapes every step)."""
+    b, lq, h, d = q_shape
+    lk = k_shape[1]
+    if (k_shape != (b, lk, h, d) or v_shape != k_shape or g_shape != q_shape):
+        raise ValueError(f"K5 kernel: q {q_shape}, k {k_shape}, v {v_shape}, "
+                         f"dO {g_shape} do not match")
+    if d % 8 or not 8 <= d <= SM90_MAX_D:
+        raise ValueError(f"K5 kernel: head dim {d} unsupported (multiples of 8 up to 160)")
+    if lq < 1 or lk < 1:
+        raise ValueError(f"K5 kernel: empty sequence (Lq {lq}, Lk {lk})")
+    d_qk = -(-d // 16) * 16
+    boxes = -(-d_qk // SM90_BOX_COLS)
+    wide = h > 1 and q_stride[2] == k_stride[2] == v_stride[2] == g_stride[2] == d
+
+    def maps(q_rows, kv_rows):
+        return (_tma_map("q", q_shape, q_stride, q_rows, wide),
+                _tma_map("k", k_shape, k_stride, kv_rows, wide),
+                _tma_map("v", v_shape, v_stride, kv_rows, wide),
+                _tma_map("dO", g_shape, g_stride, q_rows, wide))
+
+    # dK/dV: 64 queries a tile (32 above d 96: the registers of dK and dV)
+    dkv_q = 64 if d <= 96 else 32
+    key_tiles = -(-lk // BWD_DKV_KEYS)
+    nq = -(-lq // dkv_q)
+    wg_split = lk <= 64 and nq >= 2
+    splits, tiles = _dkv_splits(nq, key_tiles * h * b, wg_split, sms)
+    dkv = DkvPlan(*maps(dkv_q, BWD_DKV_KEYS), dkv_q, BWD_DKV_KEYS, BWD_DKV_STAGES, wg_split,
+                  splits, tiles, (key_tiles * splits, h, b))
+    # dQ: 128 keys a tile (64 above d 96: registers; 32 up to d 64 where Lk
+    # <= 32, the audio and identity lengths); 3 stages and two Q buffers
+    # while d fits one box, else 2 and one (shared memory)
+    dq_k = 32 if lk <= 32 and d <= 64 else 128 if d <= 96 else 64
+    q_buffers = 2 if boxes == 1 else 1
+    q_tiles = -(-lq // BWD_DQ_ROWS)
+    per = _dq_tiles(q_tiles, -(-lk // dq_k), h * b, sms)
+    ctas = -(-(-(-q_tiles // per)) // SM90_CLUSTER) * SM90_CLUSTER
+    dq = DqPlan(*maps(BWD_DQ_ROWS, dq_k // SM90_CLUSTER), BWD_DQ_ROWS, dq_k,
+                3 if boxes == 1 else 2, q_buffers, per, (ctas, h, b))
+    return Sm90BwdPlan(wide, d_qk, d, boxes, -(-lq // BWD_STAT_ROWS) * BWD_STAT_ROWS,
+                       key_tiles * BWD_DKV_KEYS, dkv, dq,
+                       ("q", "k", "dO", "v") if wide and d_qk > d else ())
+
+
+def bwd_plan(q4, k4, v4, g4, sms: int = H100_SMS) -> Sm90BwdPlan:
+    """The tensor maps, tiles, splits and grids of K5's Hopper kernels for
+    (B, L, H, d) views of bf16 q, k, v and dO (any strides, d contiguous)
+    on a card of `sms` SMs. Raises on what the kernels do not take: another
+    dtype, d not a multiple of 8 in 8..160, strides or addresses TMA cannot
+    read, mismatched shapes. The maps are K1's (`sm90_plan`): wide where a
+    token's heads are adjacent in all four, and the kernels then zero the
+    pad columns (d up to d rounded to 16) of Q, K, dO and V in shared memory,
+    so that head h's gradients never read head h + 1's values."""
+    for name, t in (("q", q4), ("k", k4), ("v", v4), ("dO", g4)):
+        _check_bf16_aligned(name, t)
+    return _bwd_plan(tuple(q4.shape), q4.stride(), tuple(k4.shape), k4.stride(),
+                     tuple(v4.shape), v4.stride(), tuple(g4.shape), g4.stride(), sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def _bwd_args(plan: Sm90BwdPlan, dq_pass: bool, b: int, lq: int, lk: int, h: int):
+    """A K5 launch's `maps` and `cfg` arrays (csrc/flash_bwd_sm90.cu's enum
+    Cfg), read during the call, so one pair serves every call with this
+    plan."""
+    p = plan.dq if dq_pass else plan.dkv
+    vals = [x for m in (p.q, p.k, p.v, p.g) for x in (*m.dims, *m.strides)]
+    extra = p.q_buffers if dq_pass else int(p.wg_split)
+    cfg = (b, h, lq, lk, plan.d_v, plan.lq_pad, plan.lk_pad, b * lk * h * plan.d_v,
+           int(plan.wide), p.block_q, p.block_k, p.stages, p.tiles, p.grid[0], extra)
+    return (ctypes.c_longlong * len(vals))(*vals), (ctypes.c_longlong * len(cfg))(*cfg)
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 class BackwardArgs(NamedTuple):
-    """K5's checked inputs: contiguous q, k, v, g of one type, the fp32
-    per-key bias (or None), lse and Delta = rowsum(g * out), (B, H, Lq)."""
+    """K5's checked CUDA inputs: bf16 q, k, v, dO (`g`) and their plan, the
+    tiled per-key bias (or None), lse and Delta = rowsum(g * out) as fp32
+    (B, H, Lq rounded up to 64) (+inf and 0 past Lq), the outputs' dtype."""
 
     q: torch.Tensor
     k: torch.Tensor
@@ -428,63 +604,88 @@ class BackwardArgs(NamedTuple):
     delta: torch.Tensor
     heads: int
     scale: float
+    plan: Sm90BwdPlan
+    dtype: torch.dtype
+
+
+def _padded_rows(t: torch.Tensor, lq_pad: int, fill: float) -> torch.Tensor:
+    """(B, H, Lq) fp32 -> contiguous (B, H, lq_pad), `fill` past Lq."""
+    lq = t.shape[-1]
+    if lq == lq_pad:
+        return t.contiguous()
+    out = torch.full((*t.shape[:-1], lq_pad), fill, dtype=torch.float32, device=t.device)
+    out[..., :lq] = t
+    return out
 
 
 def backward_args(q, k, v, bias, out, lse, g, heads: int, scale=None) -> BackwardArgs:
-    """Check K5's CUDA inputs and compute Delta = rowsum(g * out) in fp32
-    torch ops, as JAX computes it in XLA outside its kernels
-    (pallas_flash.py:579-581)."""
+    """Check K5's CUDA inputs, plan the launches, and compute Delta =
+    rowsum(g * out) in fp32 torch ops, as JAX computes it in XLA outside its
+    kernels (pallas_flash.py:579-581). fp32 q, k, v, g are rounded to bf16
+    (the tensor cores' operands); the gradients keep q's dtype."""
     b, lq, c = q.shape
     d = c // heads
     if scale is None:
         scale = d ** -0.5
-    q, k, v, g = (t.contiguous() for t in (q, k, v, g.to(q.dtype)))
-    _check(q, k, v, d)
-    _check_16b("g", g)
-    if d > 160:
-        raise ValueError(f"flash attention backward kernel: head dim {d} unsupported")
+    _check_devices(q, k, v)
     for name, t in (("out", out), ("lse", lse), ("g", g)):
         if t.device != q.device:
             raise ValueError(f"flash attention backward: {name} on {t.device}, q on {q.device}")
-    kb = _key_bias(bias, b, k.shape[1])
-    if kb is not None and kb.device != q.device:
+    if bias is not None and bias.device != q.device:
         raise ValueError("flash attention backward: bias on another device than q")
+    dtype = q.dtype
+    q, k, v, g = (t if t.dtype == torch.bfloat16 else t.to(torch.bfloat16) for t in (q, k, v, g))
+    for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
+        _check_bf16_aligned(name, t)
+    plan = _bwd_plan(*_heads_view(q, heads), *_heads_view(k, heads), *_heads_view(v, heads),
+                     *_heads_view(g, heads), _sms(q.device))
     delta = (g.float() * out.float()).unflatten(2, (heads, d)).sum(-1).transpose(1, 2)
-    return BackwardArgs(q, k, v, g, kb, lse.float().contiguous(), delta.contiguous(), heads,
-                        float(scale))
+    return BackwardArgs(
+        q, k, v, g, _tile_bias(bias, b, k.shape[1], BWD_DKV_KEYS),
+        _padded_rows(lse.float(), plan.lq_pad, math.inf),
+        _padded_rows(delta, plan.lq_pad, 0.0), heads, float(scale), plan, dtype)
 
 
-def _bwd_call(entry: str, a: BackwardArgs, *outputs: torch.Tensor) -> None:
+def _bwd_call(entry: str, a: BackwardArgs, out0, out1, out_f32: bool) -> None:
     b, lq, c = a.q.shape
+    maps, cfg = _bwd_args(a.plan, entry == "flash_bwd_dq", b, lq, a.k.shape[1], a.heads)
     _build.call(
         entry,
         a.q.data_ptr(), a.k.data_ptr(), a.v.data_ptr(), a.g.data_ptr(),
         None if a.bias is None else a.bias.data_ptr(), a.lse.data_ptr(), a.delta.data_ptr(),
-        *(t.data_ptr() for t in outputs),
-        b, a.heads, lq, a.k.shape[1], c // a.heads, a.scale, a.scale * _LOG2E,
-        _DTYPES[a.q.dtype], torch.cuda.current_stream(a.q.device).cuda_stream,
+        out0.data_ptr(), None if out1 is None else out1.data_ptr(), maps, cfg, int(out_f32),
+        a.scale, a.scale * _LOG2E, torch.cuda.current_stream(a.q.device).cuda_stream,
     )
 
 
 def flash_bwd_dkv(a: BackwardArgs) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5's dK/dV pass (`_dkv_kernel_packed`): (dk, dv)."""
-    dk, dv = torch.empty_like(a.k), torch.empty_like(a.v)
-    _bwd_call("flash_bwd_dkv", a, dk, dv)
+    """K5's dK/dV pass (`_dkv_kernel_packed`): (dk, dv). Where the plan
+    splits the query range, the kernel writes fp32 partials, summed here in
+    split order."""
+    splits = a.plan.dkv.splits
+    if splits == 1:
+        dk = torch.empty(a.k.shape, dtype=a.dtype, device=a.k.device)
+        dv = torch.empty(a.v.shape, dtype=a.dtype, device=a.v.device)
+        _bwd_call("flash_bwd_dkv", a, dk, dv, a.dtype == torch.float32)
+    else:
+        part = torch.empty((2, splits, *a.k.shape), dtype=torch.float32, device=a.k.device)
+        _bwd_call("flash_bwd_dkv", a, part[0], part[1], True)
+        dk, dv = part.sum(1).to(a.dtype)
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
 
 
 def flash_bwd_dq(a: BackwardArgs) -> torch.Tensor:
     """K5's dQ pass (`_dq_kernel_packed`)."""
-    dq = torch.empty_like(a.q)
-    _bwd_call("flash_bwd_dq", a, dq)
+    dq = torch.empty(a.q.shape, dtype=a.dtype, device=a.q.device)
+    _bwd_call("flash_bwd_dq", a, dq, None, a.dtype == torch.float32)
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
 
 
 def flash_backward(q, k, v, bias, out, lse, g, heads: int, scale=None):
-    """K5 on CUDA tensors: the two passes of `csrc/flash_bwd.cu` from the
-    forward's `out` and `lse`. Returns (dq, dk, dv)."""
+    """K5 on CUDA tensors: the two passes of `csrc/flash_bwd_sm90.cu` from
+    the forward's `out` and `lse`. Returns (dq, dk, dv)."""
     a = backward_args(q, k, v, bias, out, lse, g, heads, scale)
     dk, dv = flash_bwd_dkv(a)
     return flash_bwd_dq(a), dk, dv
@@ -539,11 +740,21 @@ def flash_attention(
             q, k, v, None if kb is None else kb[:, None, None, :], scale
         )
     _forward_only("flash_attention", q, k, v)
-    _check(q, k, v, d)
+    _check_devices(q, k, v)
+    ints = _heads_major_args(tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
+                             tuple(v.shape), v.stride(), q.dtype)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash attention: {name} is not 16-byte aligned")
     out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
-    _launch(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        out.transpose(1, 2), _key_bias(bias, b, lk), scale,
+    kb = _key_bias(bias, b, lk)
+    if kb is not None and kb.device != q.device:
+        raise ValueError("flash attention: bias on another device than q")
+    _build.call(
+        "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if kb is None else kb.data_ptr(), out.data_ptr(), *ints,
+        0 if kb is None else kb.stride(0), float(scale) * _LOG2E, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     LAUNCHES["flash_fwd_t" if d % 128 else "flash_fwd"] += 1
     return out

@@ -271,11 +271,24 @@ def test_load_wav_reads_float_and_pcm():
     assert np.abs(pcm).max() <= 1.0 and np.abs(flt).max() <= 1.0
 
 
-def test_separator_path_raises():
+@pytest.mark.parametrize("exists", [False, True])
+def test_separator_path_raises(tmp_path, exists):
+    """A separator path naming a missing file proceeds without separation,
+    as JAX's AudioProcessor does (configs/inference/default.yaml names one
+    that is not in the repo): it builds and processes a WAV. An existing
+    file raises, since the ONNX executor is not ported."""
     sd = build_wav2vec("tiny", device="cpu").state_dict()
-    with pytest.raises(NotImplementedError):
-        AudioProcessor(wav2vec_state_dict=sd, wav2vec_config=WAV2VEC_CONFIGS["tiny"],
-                       device="cpu", audio_separator_model_path="Kim_Vocal_2.onnx")
+    path = tmp_path / "Kim_Vocal_2.onnx"
+    if exists:
+        path.write_bytes(b"onnx")
+        with pytest.raises(NotImplementedError):
+            AudioProcessor(wav2vec_state_dict=sd, wav2vec_config=WAV2VEC_CONFIGS["tiny"],
+                           device="cpu", audio_separator_model_path=str(path))
+        return
+    proc = AudioProcessor(wav2vec_state_dict=sd, wav2vec_config=WAV2VEC_CONFIGS["tiny"],
+                          device="cpu", audio_separator_model_path=str(path))
+    emb, length = proc.preprocess(f"{WAVS}/1.wav", clip_length=16)
+    assert length == 75 and emb.shape[0] == 80 and np.isfinite(emb).all()
 
 
 def test_wav_to_two_clips_matches_jax(tmp_path):

@@ -356,3 +356,139 @@ def test_layout_copy_is_bitwise(cuda_device, shape, dtype, offset):
         layout.layout_anchor(x.transpose(0, 1))
     with pytest.raises(RuntimeError, match="no backward"):
         layout.layout_anchor(x.clone().requires_grad_())
+
+
+def _k5_close(got, want, vanishes=False):
+    """K5's limits: the gradients grow with the length they sum over, so the
+    max abs error is held against 2e-2 of the plain gradient's max |value|,
+    beside the relative L2 limit 1e-2. With one key (`vanishes`, for dQ
+    and dK), P is 1 and dS = dP - Delta is 0 up to rounding: both versions'
+    residues are differences of two fp32 sums of the same bf16 products,
+    held within 1e-3."""
+    err = got.float() - want.float()
+    if vanishes:
+        return err.abs().max().item() <= 1e-3 and want.abs().max().item() <= 1e-3
+    return (err.abs().max().item() <= ATOL * want.float().abs().max().item()
+            and (err.norm() / want.float().norm()).item() <= RTOL)
+
+
+def _k5(q, k, v, heads, bias=None, seed=0):
+    """K1 with its LSE, then K5 (`flash_bwd_sm90.cu`) on a seeded dO,
+    counting one launch of each pass. Returns (g, out, lse, (dq, dk, dv))."""
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    g = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    out, lse = flash.flash_forward_packed(q, k, v, heads, bias, with_lse=True)
+    before = {n: flash.LAUNCHES[n] for n in ("flash_bwd_dkv", "flash_bwd_dq")}
+    grads = flash.flash_backward(q, k, v, bias, out, lse, g, heads)
+    assert all(flash.LAUNCHES[n] == before[n] + 1 for n in before)
+    assert all(a.dtype == t.dtype and a.shape == t.shape for a, t in zip(grads, (q, k, v)))
+    return g, out, lse, grads
+
+
+def _k5_plain(q, k, v, bias, out, lse, g, heads, i):
+    """The plain version for batch element i, on the operands the kernels
+    multiply (bf16)."""
+    qf, kf, vf, gf = (t[i:i + 1].to(torch.bfloat16).float() for t in (q, k, v, g))
+    bi = None if bias is None else bias[i:i + 1]
+    return flash.flash_backward_reference(qf, kf, vf, bi, out[i:i + 1], lse[i:i + 1], gf, heads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lk", [1, 4, 32, 33, 127, 129, 8192])
+@pytest.mark.parametrize("d", [8, 40, 64, 80, 128, 160])
+def test_sm90_backward_kernels_match_plain(cuda_device, d, lk):
+    """K5's Hopper kernels over their head-dim classes (one, two and three
+    64-column boxes; d a multiple of 16 or not, 32-query dK/dV tiles and
+    64-key dQ tiles above d 96) and key lengths of one key, the audio and
+    identity lengths (both consumers on the same 64 keys in the dK/dV pass,
+    several query tiles a dQ CTA), one key past a boundary, and many tiles,
+    at a ragged Lq of 65: dQ, dK and dV against `flash_backward_reference`."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    heads = 2
+    q, k, v = (_bf16(gen, cuda_device, 2, n, heads * d) for n in (65, lk, lk))
+    g, out, lse, grads = _k5(q, k, v, heads, seed=22)
+    for i in range(2):
+        want = _k5_plain(q, k, v, None, out, lse, g, heads, i)
+        for j, (got, w) in enumerate(zip(grads, want)):
+            assert _k5_close(got[i:i + 1], w, vanishes=lk == 1 and j < 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq", [1, 65, 4095])
+def test_sm90_backward_kernels_ragged_queries(cuda_device, lq):
+    """Level 0's width (8 heads of d 40) and reference-concat key length
+    (8192) at query lengths that leave one row, part of a tile, and all but
+    one row of the last tile (LSE and Delta padded past Lq)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    q, k, v = (_bf16(gen, cuda_device, 1, n, 320) for n in (lq, 8192, 8192))
+    g, out, lse, grads = _k5(q, k, v, 8, seed=24)
+    for got, w in zip(grads, _k5_plain(q, k, v, None, out, lse, g, 8, 0)):
+        assert _k5_close(got, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_sm90_backward_kernels_masked_keys(cuda_device, d):
+    """The main path's widths with MASK_VALUE on the second half of the keys
+    (batch 0), on every key (batch 1: K1's LSE is -MASK_VALUE there, P is 0
+    and every gradient exactly 0) and on none (batch 2), and in fp32 I/O
+    (rounded to bf16 by the wrapper; fp32 gradients)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(25)
+    heads, lq, lk = 8, 300, 1000
+    q, k, v = (_bf16(gen, cuda_device, 3, n, heads * d) for n in (lq, lk, lk))
+    bias = torch.zeros(3, lk, device=cuda_device)
+    bias[0, lk // 2:] = flash.MASK_VALUE
+    bias[1] = flash.MASK_VALUE
+    for dtype in (torch.bfloat16, torch.float32):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        g, out, lse, grads = _k5(qd, kd, vd, heads, bias, seed=26)
+        for got in grads:
+            assert torch.equal(got[1], torch.zeros_like(got[1]))
+        for i in (0, 2):
+            for got, w in zip(grads, _k5_plain(qd, kd, vd, bias, out, lse, g, heads, i)):
+                assert _k5_close(got[i:i + 1], w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,lq,lk,c", [(14, 4096, 8192, 320), (1, 4096, 32, 320),
+                                       (14, 4096, 4, 320), (2, 256, 512, 1280)],
+                         ids=["level0", "audio_split", "identity", "level2"])
+def test_sm90_backward_kernels_are_bitwise_repeatable(cuda_device, b, lq, lk, c):
+    """Two launches on the same inputs give bit-identical dQ, dK and dV: no
+    atomics, every sum in a fixed order (the query range split over CTAs at
+    B 1, Lk 32, summed by the wrapper in split order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(27)
+    q, k, v, g = (_bf16(gen, cuda_device, b, n, c) for n in (lq, lk, lk, lq))
+    out, lse = flash.flash_forward_packed(q, k, v, 8, None, with_lse=True)
+    first = flash.flash_backward(q, k, v, None, out, lse, g, 8)
+    second = flash.flash_backward(q, k, v, None, out, lse, g, 8)
+    for a, b2 in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b2.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 72])
+def test_wide_maps_keep_a_neighbour_heads_inf_out(cuda_device, d):
+    """Under the wide maps a box reads head h + 1's first columns as head
+    h's contraction pad (d up to d rounded to 16): with inf planted there in
+    K (for K1) and in K and V (for K5), head h's K1 output and LSE and its
+    K5 dQ, dK and dV still equal the plain version's on head h alone, since
+    the kernels zero the pad in shared memory. Head h + 1's own results are
+    non-finite, as the plain version's are."""
+    gen = torch.Generator(device=cuda_device).manual_seed(28)
+    heads, h, lq, lk = 4, 1, 200, 300
+    q, k, v, g = (_bf16(gen, cuda_device, 2, n, heads * d) for n in (lq, lk, lk, lq))
+    nxt = slice((h + 1) * d, (h + 1) * d + 8)
+    k[:, :, nxt] = float("inf")
+    v[:, :, nxt] = float("inf")
+    out, lse = flash.flash_forward_packed(q, k, v, heads, None, with_lse=True)
+    grads = flash.flash_backward(q, k, v, None, out, lse, g, heads)
+    cols = slice(h * d, (h + 1) * d)
+    qh, kh, vh, gh = (t[:, :, cols].float() for t in (q, k, v, g))
+    assert _close(out[:, :, cols], flash.packed_reference(qh, kh, vh, 1))
+    assert (lse[:, h] - flash.flash_lse_reference(qh, kh, 1)[:, 0]).abs().max().item() <= 1e-3
+    want = flash.flash_backward_reference(qh, kh, vh, None, out[:, :, cols], lse[:, h:h + 1],
+                                          gh, 1)
+    for got, w in zip(grads, want):
+        assert torch.isfinite(got[:, :, cols]).all()
+        assert _k5_close(got[:, :, cols], w)
