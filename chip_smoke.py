@@ -20,9 +20,14 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    host cost per call) at the training shapes (14 frames at 512^2: levels
    0-2, audio and identity cross-attention), against autograd's backward
    of `F.scaled_dot_product_attention` as the library call; the host cost
-   of a whole K5 call and of a K3 call at tiny shapes; K8, the Winograd 3x3 conv, at the denoiser's five 3x3-conv shapes
-   (CFG batch 32 = 2 x 16 frames at 512^2), fp32 and a small non-square
-   one, against cuDNN's `F.conv2d` as the library call, and its autograd
+   of a whole K5 call and of a K3 call at tiny shapes; K4 (the Hopper
+   kernel `flash_fwd_d512_sm90.cu`) at the VAE mid-block's encode (B 3) and
+   decode (B 16) and at d 128 and 256, each with its launch plan and host
+   cost per call; K8, the Winograd 3x3 conv (the Hopper kernel
+   `winograd.cu`: TMA, wgmma, a producer warpgroup, persistent), at the
+   denoiser's five 3x3-conv shapes (CFG batch 32 = 2 x 16 frames at 512^2),
+   fp32 and a small non-square one, each with its launch plan and host cost
+   per call, against cuDNN's `F.conv2d` as the library call, and its autograd
    entry against autograd of the direct conv; K9, the layout-anchor copy,
    bit for bit, against `clone`. Nothing on a main path calls K8 or K9, in
    either package: their launches are this phase's;
@@ -69,8 +74,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hallo_tpu_torch import config as cfglib
-from hallo_tpu_torch.config import AudioProjConfig, ImageProjConfig
 from hallo_tpu_torch.data.audio_processor import AudioProcessor, load_wav
 from hallo_tpu_torch.models import wav2vec as wav2vec_module
 from hallo_tpu_torch.ops import _build, flash, layout, temporal, winograd
@@ -78,6 +81,7 @@ from hallo_tpu_torch.ops.attention import attention_reference
 from hallo_tpu_torch.pipelines.face_animate import (
     FaceAnimatePipeline, HalloModels, window_audio_embeddings)
 from hallo_tpu_torch.train.bench_step import synthetic_batch
+from hallo_tpu_torch.train.bench_trainer import trainer_config
 from hallo_tpu_torch.train.stage2 import train_stage2_process
 from hallo_tpu_torch.train.state import (
     AdamW, OptimizerConfig, TrainState, global_norm, stage2_trainable, unfreeze)
@@ -168,7 +172,6 @@ CARD = dict(sms=0, sm_clock_hz=0.0)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WAV = os.path.join(REPO, "examples", "driving_audios", "1.wav")
-STAGE2_YAML = os.path.join(REPO, "configs", "train", "stage2.yaml")
 
 # Rows of the kernels' table: the TPU kernel each replaces, and the path
 # whose run counts its launches.
@@ -186,7 +189,7 @@ KERNELS = {
         replaces="hallo_tpu/ops/pallas_flash.py:120", launched_by="audio",
     ),
     "flash_fwd": dict(
-        tpu="K4", route="cuda", source="hallo_tpu_torch/csrc/flash_fwd.cu",
+        tpu="K4", route="cuda", source="hallo_tpu_torch/csrc/flash_fwd_d512_sm90.cu",
         replaces="hallo_tpu/ops/pallas_flash.py:73", launched_by="slice",
     ),
     "flash_int8": dict(
@@ -361,14 +364,30 @@ def kernel_cases(dev):
         packed("K1 level 1 d=80 B 14 Lq 1024 Lk 2048 C 640", 14, 1024, 2048, 640),
         packed("K1 level 2 d=160 B 14 Lq 256 Lk 512 C 1280", 14, 256, 512, 1280),
     ]
-    q, k, v = randn(3, 1, 4096, 512), randn(3, 1, 4096, 512), randn(3, 1, 4096, 512)
-    cases.append(dict(
-        row="flash_fwd", label="K4 VAE mid d=512 L 4096 B 3",
-        fn=lambda: flash.flash_attention(q, k, v),
-        plain=lambda: attention_reference(q.float(), k.float(), v.float()),
-        library=sdpa(q, k, v),
-        fault=lambda: attention_reference(q.float(), k[:, :, 64:].float(), v[:, :, 64:].float()),
-        cost=attn_cost(3, 1, 4096, 4096, 512, 2, None)))
+    # K4 (flash_fwd_d512_sm90.cu): the VAE mid-block's attention at the
+    # encode (B 3: the reference frame and 2 motion frames) and the decode
+    # (B 16 frames), then d 128 and 256 (other heads K4 takes)
+    for label, b, h, lq, d in (("VAE mid encode d=512 L 4096 B 3", 3, 1, 4096, 512),
+                               ("VAE mid decode d=512 L 4096 B 16", 16, 1, 4096, 512),
+                               ("d=128 B 2 H 4 L 2048", 2, 4, 2048, 128),
+                               ("d=256 B 2 H 2 L 2048", 2, 2, 2048, 256)):
+        q4, k4, v4 = (randn(b, h, lq, d) for _ in range(3))
+        plan = flash.d512_plan(q4, k4, v4)
+        cases.append(dict(
+            row="flash_fwd", label=f"K4 {label}",
+            fn=(lambda q=q4, k=k4, v=v4: flash.flash_attention(q, k, v)),
+            plain=(lambda q=q4, k=k4, v=v4: per_sample(
+                lambda *t: attention_reference(*(x.float() for x in t)), q, k, v)),
+            library=sdpa(q4, k4, v4),
+            fault=(lambda q=q4, k=k4, v=v4: per_sample(
+                lambda *t: attention_reference(*(x.float() for x in t)),
+                q, k[:, :, 64:], v[:, :, 64:])),
+            note=f"plan: block_q {plan.block_q}, block_k {plan.block_k}, stages "
+                 f"{plan.stages}, cluster {plan.cluster}, grid {plan.grid}, boxes q "
+                 f"{plan.q.box} k/v {plan.k.box}",
+            host={"the K4 wrapper (flash_attention)":
+                  (lambda q=q4, k=k4, v=v4: flash.flash_attention(q, k, v))},
+            cost=attn_cost(b, h, lq, lq, d, 2, None), plain_iters=3))
 
     # K3: the wav2vec2 self-attention, fp32, through the model's
     # (B, T, H, d) -> (B, H, T, d) view; T = 304 (12 s of audio), 1056 (42 s).
@@ -465,6 +484,7 @@ def winograd_cases(dev, gen):
         tiles = n * (h // 2) * (w // 2)
         direct = bound_ms(elem * (n * h * w * (c + cout) + 9 * c * cout),
                           2.0 * 9 * n * h * w * c * cout)
+        plan = winograd.winograd_plan(x, cout, CARD["sms"] or winograd.H100_SMS)
         return dict(
             row="winograd_conv3x3", label=f"K8 {label} {tuple(shape)} -> {cout}, {str(dtype)[6:]}",
             fn=lambda: winograd.winograd_conv3x3(x, k, b),
@@ -474,7 +494,11 @@ def winograd_cases(dev, gen):
             fault_name=f"first {drop} input channels dropped",
             parts=dict(kernel=lambda: winograd.winograd_launch(x, u, cout, b),
                        weight_transform=lambda: winograd.kernel_weights(k, dtype)),
-            note=f"direct-conv bound {direct[0]:.4f} ms ({direct[1]})",
+            note=f"direct-conv bound {direct[0]:.4f} ms ({direct[1]}); plan: {plan.units} units "
+                 f"of 8 x 8 tiles x 64 channels, {plan.steps} steps of 16 channels, grid "
+                 f"{plan.grid} CTAs, boxes x {plan.x.box} U {plan.u.box} y {plan.y.box}",
+            host={"the K8 wrapper (winograd_launch)":
+                  lambda: winograd.winograd_launch(x, u, cout, b)},
             cost=(elem * (n * h * w * (c + cout) + 16 * c * cout), 2.0 * 16 * tiles * c * cout,
                   0.0),
             scaled=True, plain_iters=3)
@@ -1082,32 +1106,6 @@ def phase_train(models: HalloModels, dev, scale: str = "full", profile_out: str 
                 grad_err=grad_err, fault_err=fault_err)
 
 
-def write_trainer_clip(root: str, frames: int, size: int, seed: int) -> str:
-    """One synthetic clip in `data/datasets.py`'s .npz format, at the input
-    sizes of the full-width ImageProj and AudioProj, and its meta.json
-    (returned)."""
-    ap, ip = AudioProjConfig(), ImageProjConfig()
-    rng = np.random.default_rng(seed)
-    data = dict(
-        frames=rng.integers(0, 256, (frames, size, size, 3), dtype=np.uint8),
-        audio_emb=rng.normal(size=(frames, ap.blocks, ap.channels)).astype(np.float32),
-        face_emb=rng.normal(size=(ip.clip_embeddings_dim,)).astype(np.float32),
-        face_region=np.ones((size, size, 3), np.float32),
-    )
-    for level in range(4):
-        tokens = (size // 8 >> level) ** 2
-        for kind in ("full", "face", "lip"):
-            data[f"{kind}_mask_{level}"] = (rng.uniform(size=(1, tokens)) > 0.3).astype(
-                np.float32)
-    os.makedirs(root, exist_ok=True)
-    clip = os.path.join(root, "clip0.npz")
-    np.savez(clip, **data)
-    meta = os.path.join(root, "meta.json")
-    with open(meta, "w") as fh:
-        json.dump([{"clip_path": clip}], fh)
-    return meta
-
-
 def phase_trainer(dev) -> dict:
     """`train_stage2_process`, the trainer behind `python -m
     hallo_tpu_torch.train.stage2`, on configs/train/stage2.yaml with these
@@ -1117,16 +1115,7 @@ def phase_trainer(dev) -> dict:
     YAML's pretrained paths are absent from the checkout, so the trainer
     skips them and keeps its random weights from the YAML's seed."""
     root = os.path.join(_build.BUILD_DIR, "trainer")
-    shutil.rmtree(root, ignore_errors=True)
-    cfg = cfglib.load_config(STAGE2_YAML)
-    size = int(cfg.data.train_width)
-    cfg.data.train_bs = 1
-    cfg.data.meta_paths = [write_trainer_clip(os.path.join(root, "data"), 20, size, seed=3)]
-    cfg.solver.max_train_steps = 2
-    cfg.checkpointing_steps = 2
-    cfg.val.validation_steps = 0
-    cfg.output_dir = root
-    cfg.log_every = 1
+    cfg = trainer_config(root)  # the cuts above (train/bench_trainer.py)
     exp = os.path.join(root, str(cfg.exp_name))
 
     def run(steps: int):

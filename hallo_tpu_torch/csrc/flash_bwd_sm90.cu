@@ -43,7 +43,7 @@
 //   by TMA; the per-key bias is read into registers once (constant over
 //   the loop). Q and dO tiles of 64 queries (32 above d 96: registers),
 //   with their LSE and Delta slices (bulk copies), stream through a ring of
-//   3 stages. Per tile: S^T = K Q^T and dP^T = V dO^T as SS wgmma (both
+//   4 stages. Per tile: S^T = K Q^T and dP^T = V dO^T as SS wgmma (both
 //   operands K-major), then P^T and dS^T in the accumulator layout, re-packed
 //   as bf16 A fragments for dV += P^T dO and dK += dS^T Q as RS wgmma (dO
 //   and Q the MN-major B operands, as V in K1's PV). A turn issues tile t's
@@ -51,9 +51,9 @@
 //   while t - 1's RS products are in flight. dK and dV stay in registers.
 // - At Lk <= 64 (the audio and identity cross-attention) the second
 //   consumer's 64 keys would all be past Lk: both consumers then take the
-//   same 64 keys and alternate query tiles, and the second one's dK and dV
-//   are added to the first one's through shared memory at the end, in a
-//   fixed order. Where the key tiles leave SMs idle (B H ceil(Lk / 128) CTAs
+//   same 64 keys and alternate query tiles (each owning every other stage
+//   of the ring), and the second one's dK and dV are added to the first
+//   one's through shared memory at the end, in a fixed order. Where the key tiles leave SMs idle (B H ceil(Lk / 128) CTAs
 //   against 132 SMs), the query range is split over CTAs into fp32
 //   partials that the wrapper sums in order (ops/flash.py: bwd_plan).
 // - dQ pass: a CTA owns 128 queries (64 a consumer); Q and dO arrive by
@@ -126,7 +126,12 @@ struct Tiles {
   // dK/dV pass
   static constexpr int kDkvKeys = 64 * kConsumers;
   static constexpr int kDkvQ = DV <= 96 ? 64 : 32;
-  static constexpr int kDkvStages = 3;
+  // even: where the two consumers take alternate query tiles (Lk <= 64),
+  // each then owns every other stage and waits on all of its phases in
+  // order. A parity wait is sound only so: in an odd ring tile i's stage
+  // last held the other consumer's tile, and the wait on tile i would pass
+  // at once while that tile was still landing.
+  static constexpr int kDkvStages = 4;
   static constexpr int kDkvKVBox = kDkvKeys * 128;
   static constexpr int kDkvKVBytes = kBoxes * kDkvKVBox;
   static constexpr int kDkvQBox = kDkvQ * 128;

@@ -1,7 +1,8 @@
 // Device code shared by the flash-attention kernels for Hopper (sm_90a):
-// flash_fwd.cu (bf16 QK^T; K3, K4) and flash_int8.cu (int8 QK^T; K6);
-// flash_fwd_sm90.cu (K1) and flash_bwd_sm90.cu (K5) take fast_exp2,
-// pack_bf16 and the store.
+// flash_fwd.cu (bf16 QK^T; K3) and flash_int8.cu (int8 QK^T; K6);
+// flash_fwd_sm90.cu (K1), flash_fwd_d512_sm90.cu (K4) and flash_bwd_sm90.cu
+// (K5) take fast_exp2, pack_bf16 and the store; K1 and K4 also the tile
+// softmax of the wgmma accumulator layout (`tile_softmax`).
 //
 // All keep one warp per 16 rows in the mma.sync fragment layout: lane
 // (g = lane / 4, tg = lane % 4) holds rows g and g + 8 of each 8-column
@@ -244,6 +245,78 @@ __device__ __forceinline__ void store_rows(T* ob, long long s_l, const float (&a
   const float l0 = quad_sum(l_r[0]), l1 = quad_sum(l_r[1]);
   store_scaled<T, DTILES>(ob, s_l, acc, l0 > 0.f ? 1.f / l0 : 0.f, l1 > 0.f ? 1.f / l1 : 0.f,
                           row0, Lq, col0, D, tg);
+}
+
+// The max over a thread's columns of one row (e0 = 0: row g, 2: row g + 8)
+// in 4 independent chains: a consumer warp shares its scheduler with one or
+// two others, so a single chain's latency would stall it.
+template <int KT>
+__device__ __forceinline__ float row_max(const float (&s)[KT][4], int e0) {
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < KT; ++i) m[i & 3] = fmaxf(m[i & 3], fmaxf(s[i][e0], s[i][e0 + 1]));
+  return fmaxf(fmaxf(m[0], m[1]), fmaxf(m[2], m[3]));
+}
+
+// One key tile's online softmax for rows g and g + 8 of a warp, in the log2
+// domain: x = s * scale (+ the tile's bias, already times log2 e and -inf
+// past Lk; without one, -inf for keys >= Lk). `s` holds the raw scores and
+// receives the unnormalised probabilities exp2(x - m); m_r is the running
+// max of x, l_r the quad-partial row sums (reduced at the store); alpha
+// receives the factor that rescales the output so far. A tile with no bias
+// and no key past Lk takes x = s * scale inside the ex2's argument (one
+// FFMA a score); a row with every key at -inf keeps m = -inf and gets p = 0.
+template <int KT>
+__device__ __forceinline__ void tile_softmax(float (&s)[KT][4], float (&m_r)[2], float (&l_r)[2],
+                                             float (&alpha)[2], float scale, const float* bias,
+                                             int k0, int lk, int tg) {
+  float mul = scale;
+  if (bias != nullptr) {
+#pragma unroll
+    for (int i = 0; i < KT; ++i) {
+      const float2 bv = *reinterpret_cast<const float2*>(bias + i * 8 + tg * 2);
+      s[i][0] = fmaf(s[i][0], scale, bv.x);
+      s[i][1] = fmaf(s[i][1], scale, bv.y);
+      s[i][2] = fmaf(s[i][2], scale, bv.x);
+      s[i][3] = fmaf(s[i][3], scale, bv.y);
+    }
+    mul = 1.f;
+  } else if (k0 + KT * 8 > lk) {
+#pragma unroll
+    for (int i = 0; i < KT; ++i) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const bool in = k0 + i * 8 + tg * 2 + c < lk;
+        s[i][c] = in ? s[i][c] * scale : -INFINITY;
+        s[i][c + 2] = in ? s[i][c + 2] * scale : -INFINITY;
+      }
+    }
+    mul = 1.f;
+  }
+  float t0 = row_max(s, 0) * mul, t1 = row_max(s, 2) * mul;  // mul > 0
+  t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 1));
+  t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 2));
+  t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 1));
+  t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 2));
+  const float mn0 = fmaxf(m_r[0], t0), mn1 = fmaxf(m_r[1], t1);
+  const float mu0 = (mn0 == -INFINITY) ? 0.f : mn0;
+  const float mu1 = (mn1 == -INFINITY) ? 0.f : mn1;
+  alpha[0] = fast_exp2(m_r[0] - mu0);
+  alpha[1] = fast_exp2(m_r[1] - mu1);
+  m_r[0] = mn0;
+  m_r[1] = mn1;
+  float r0[4] = {0.f, 0.f, 0.f, 0.f}, r1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < KT; ++i) {
+    s[i][0] = fast_exp2(fmaf(s[i][0], mul, -mu0));
+    s[i][1] = fast_exp2(fmaf(s[i][1], mul, -mu0));
+    s[i][2] = fast_exp2(fmaf(s[i][2], mul, -mu1));
+    s[i][3] = fast_exp2(fmaf(s[i][3], mul, -mu1));
+    r0[i & 3] += s[i][0] + s[i][1];
+    r1[i & 3] += s[i][2] + s[i][3];
+  }
+  l_r[0] = l_r[0] * alpha[0] + ((r0[0] + r0[1]) + (r0[2] + r0[3]));
+  l_r[1] = l_r[1] * alpha[1] + ((r1[0] + r1[1]) + (r1[2] + r1[3]));
 }
 
 }  // namespace

@@ -1,17 +1,15 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 or fp32 in and out,
 // bf16 tensor-core products, fp32 softmax and accumulation.
 //
-// Replaces two TPU kernels of hallo_tpu/ops/pallas_flash.py, both reached
-// through `flash_attention` (heads-major (B, H, L, D)):
-//   K3 _attention_kernel_t (d % 128 != 0: the wav2vec2 self-attention, 12
-//      heads of d = 64, fp32 I/O), and
-//   K4 _attention_kernel (the VAE mid-block, d = 512).
-// K1 (_attention_kernel_packed, natural (B, L, C)) has its own kernel,
-// flash_fwd_sm90.cu. This one reads q/k/v/o through (batch, token, head)
-// strides with the head dim contiguous, so (B, H, L, D) is a (B, L, H, D)
-// view with other strides. K3's transposed
-// scores and PV accumulator were a TPU MXU layout choice (d on the M axis)
-// and are not carried over.
+// Replaces K3, hallo_tpu/ops/pallas_flash.py:120 _attention_kernel_t,
+// reached through `flash_attention` (heads-major (B, H, L, D)) when d % 128
+// != 0: the wav2vec2 self-attention, 12 heads of d = 64, fp32 I/O. K1
+// (natural (B, L, C)) and K4 (d % 128 == 0) have Hopper kernels of their
+// own, flash_fwd_sm90.cu and flash_fwd_d512_sm90.cu. This one reads
+// q/k/v/o through (batch, token, head) strides with the head dim
+// contiguous, so (B, H, L, D) is a (B, L, H, D) view with other strides.
+// K3's transposed scores and PV accumulator were a TPU MXU layout choice (d
+// on the M axis) and are not carried over.
 //
 // fp32 I/O (K3): the tiles are read from fp32 and rounded to bf16 on their
 // way into shared memory -- the rounding the TPU's MXU applies to fp32 at
@@ -19,20 +17,16 @@
 // the accumulator are fp32 as always, and the output is written in fp32.
 // These loads are synchronous (no cp.async: the type changes on the way).
 //
-// What bounds it on this card: the main-path shapes (Lq 256..4096, Lk up to
-// 8192, d 40/80/160) are compute bound -- some 10 TFLOP of QK^T and PV per
-// denoiser forward at 512^2 -- so the products run on the tensor cores
+// What bounds it on this card: attention is compute bound at long
+// sequences (the audio path's Lq = Lk up to 1056 at d 64), so the products
+// run on the tensor cores
 // (mma.sync m16n8k16, bf16 x bf16 -> fp32), and neither the scores nor the
 // probabilities ever reach device memory: the online softmax keeps m, l and
 // the output accumulator in fp32 registers (log2 domain, scale * log2(e)
 // applied to the fp32 scores). A warp owns 16 query rows; the scores'
 // accumulator fragment is re-packed in registers as the A operand of the PV
 // product. Head dims that are not a multiple of 16 (d = 40) are zero-padded
-// in shared memory to the instantiation's width. d = 512 does not fit one
-// warp's registers, so four warps share 16 rows: each contracts a quarter of
-// d for the scores (summed through shared memory) and owns a quarter of the
-// output columns; its K/V tiles are 32 keys (179 KB of shared memory with
-// the double buffers).
+// in shared memory to the instantiation's width.
 //
 // Masking: keys past Lk (ragged tiles, Lk as small as 1) score -inf; an
 // optional fp32 per-key bias (B, Lk) in natural-log units is added (times
@@ -66,30 +60,28 @@ struct FlashParams {
 };
 
 // T: the I/O type (bf16 or float); DP: padded head dim; BK: keys per tile;
-// WR: 16-row groups per block; WD: warps sharing one row group (splitting d).
-template <typename T, int DP, int BK, int WR, int WD>
-__global__ void __launch_bounds__(32 * WR * WD)
+// WR: warps, each owning 16 query rows.
+template <typename T, int DP, int BK, int WR>
+__global__ void __launch_bounds__(32 * WR)
     flash_fwd_kernel(const FlashParams p) {
   constexpr bool F32 = sizeof(T) == 4;
   constexpr int BQ = 16 * WR;
-  constexpr int NT = 32 * WR * WD;
+  constexpr int NT = 32 * WR;
   constexpr int SROW = DP + 8;
-  constexpr int DS = DP / WD;  // contraction slice and output slice per warp
-  constexpr int KSTEPS = DS / 16;
-  constexpr int DTILES = DS / 8;
+  constexpr int KSTEPS = DP / 16;
+  constexpr int DTILES = DP / 8;
   constexpr int KT = BK / 8;
-  static_assert(DS % 16 == 0, "per-warp d slice must be a multiple of 16");
+  static_assert(DP % 16 == 0, "the padded head dim must be a multiple of 16");
   static_assert(BK % 16 == 0, "key tile must be a multiple of 16");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + BQ * SROW;       // 2 buffers of BK x SROW
   bf16* Vs = Ks + 2 * BK * SROW;   // 2 buffers of BK x SROW
-  float4* Sx = reinterpret_cast<float4*>(Vs + 2 * BK * SROW);  // WD > 1 only
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int wr = warp / WD, wd = warp % WD;
+  const int wr = warp;
   const int g = lane >> 2, tg = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -119,11 +111,11 @@ __global__ void __launch_bounds__(32 * WR * WD)
   // Per-lane ldmatrix row addresses (see ldmatrix_x4):
   // Q, the A operand: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15).
   const bf16* qfrag = Qs + (wr * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SROW +
-                      wd * DS + (lane >> 4) * 8;
+                      (lane >> 4) * 8;
   // K, the B operand of S: keys n0..n0+15 (two n-tiles) x (k 0-7 | 8-15).
-  const int k_row = (lane & 7) + (lane >> 4) * 8, k_col = wd * DS + ((lane >> 3) & 1) * 8;
+  const int k_row = (lane & 7) + (lane >> 4) * 8, k_col = ((lane >> 3) & 1) * 8;
   // V, the B operand of PV, transposed: keys (0-7 | 8-15) x two d-tiles.
-  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_col = wd * DS + (lane >> 4) * 8;
+  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_col = (lane >> 4) * 8;
 
   const int nkv = (p.Lk + BK - 1) / BK;
   for (int j = 0; j < nkv; ++j) {
@@ -147,7 +139,7 @@ __global__ void __launch_bounds__(32 * WR * WD)
     }
     __syncthreads();  // tile j (and Q) visible to every warp
 
-    // ---- S = Q K^T over this warp's d slice ----
+    // ---- S = Q K^T ----
     float s[KT][4];
 #pragma unroll
     for (int nt = 0; nt < KT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
@@ -163,25 +155,6 @@ __global__ void __launch_bounds__(32 * WR * WD)
         mma_bf16(s[nt + 1], a, bb[2], bb[3]);
       }
     }
-    if (WD > 1) {
-      // sum the WD partial score tiles of this row group
-#pragma unroll
-      for (int nt = 0; nt < KT; ++nt)
-        Sx[((wr * WD + wd) * KT + nt) * 32 + lane] =
-            make_float4(s[nt][0], s[nt][1], s[nt][2], s[nt][3]);
-      __syncthreads();
-#pragma unroll
-      for (int nt = 0; nt < KT; ++nt) {
-        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int w2 = 0; w2 < WD; ++w2) {
-          const float4 u = Sx[((wr * WD + w2) * KT + nt) * 32 + lane];
-          t.x += u.x; t.y += u.y; t.z += u.z; t.w += u.w;
-        }
-        s[nt][0] = t.x; s[nt][1] = t.y; s[nt][2] = t.z; s[nt][3] = t.w;
-      }
-    }
-
     // ---- scale, bias, bounds (log2 domain) ----
 #pragma unroll
     for (int nt = 0; nt < KT; ++nt) {
@@ -201,16 +174,15 @@ __global__ void __launch_bounds__(32 * WR * WD)
   }
 
   T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  store_rows<T, DTILES>(ob, p.o_sl, acc, l_r, q0 + wr * 16 + g, p.Lq, wd * DS, p.D, tg);
+  store_rows<T, DTILES>(ob, p.o_sl, acc, l_r, q0 + wr * 16 + g, p.Lq, 0, p.D, tg);
 }
 
-template <typename T, int DP, int BK, int WR, int WD>
+template <typename T, int DP, int BK, int WR>
 cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
   constexpr int BQ = 16 * WR;
-  constexpr int NT = 32 * WR * WD;
-  const size_t smem = (size_t)(BQ + 4 * BK) * (DP + 8) * sizeof(bf16) +
-                      (WD > 1 ? (size_t)WR * WD * (BK / 8) * 32 * sizeof(float4) : 0);
-  auto kern = flash_fwd_kernel<T, DP, BK, WR, WD>;
+  constexpr int NT = 32 * WR;
+  const size_t smem = (size_t)(BQ + 4 * BK) * (DP + 8) * sizeof(bf16);
+  auto kern = flash_fwd_kernel<T, DP, BK, WR>;
   // the shared-memory limit, once per device (one bit each) and instantiation
   static unsigned long long configured = 0;
   int dev = 0;
@@ -228,18 +200,17 @@ cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t dispatch(const FlashParams& p, cudaStream_t st) {
-  if (p.D <= 48) return launch<T, 48, 64, 4, 1>(p, st);
-  if (p.D <= 64) return launch<T, 64, 64, 4, 1>(p, st);
-  if (p.D <= 80) return launch<T, 80, 64, 4, 1>(p, st);
-  if (p.D <= 128) return launch<T, 128, 64, 4, 1>(p, st);
-  if (p.D <= 160) return launch<T, 160, 64, 4, 1>(p, st);
-  if (p.D == 512) return launch<T, 512, 32, 2, 4>(p, st);
+  if (p.D <= 48) return launch<T, 48, 64, 4>(p, st);
+  if (p.D <= 64) return launch<T, 64, 64, 4>(p, st);
+  if (p.D <= 80) return launch<T, 80, 64, 4>(p, st);
+  if (p.D <= 128) return launch<T, 128, 64, 4>(p, st);
+  if (p.D <= 160) return launch<T, 160, 64, 4>(p, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Head dims the card takes: any multiple of 8 up to 160, and 512.
+// Head dims the card takes: any multiple of 8 up to 160.
 // dtype: 0 = bf16 q/k/v/o, 1 = fp32 q/k/v/o.
 extern "C" int hallo_flash_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,

@@ -2,7 +2,8 @@
 // loads with mbarrier completion, warpgroup matrix products (wgmma) with
 // operands in 128-byte-swizzled shared memory, named barriers and register
 // reallocation between warpgroups, and the host's tensor-map encoding.
-// flash_fwd_sm90.cu (K1) and flash_bwd_sm90.cu (K5) use them.
+// flash_fwd_sm90.cu (K1), flash_fwd_d512_sm90.cu (K4), flash_bwd_sm90.cu (K5)
+// and winograd.cu (K8) use them.
 //
 // Shared-memory operand layout (what a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B and a box of 64 bf16 columns writes): each row
@@ -119,6 +120,27 @@ __device__ __forceinline__ void tma_load_4d_multicast(uint32_t dst, const void* 
       ".multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// The same for a 5-d map.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const void* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d_multicast(uint32_t dst, const void* map, uint32_t bar,
+                                                      uint16_t mask, int c0, int c1, int c2,
+                                                      int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6, %7, %8}], [%2], %3;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -635,22 +657,30 @@ EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// One operand's map: 4 extents (innermost first), the byte strides of axes
-// 1-3, and a box of 64 columns x `rows` rows.
-bool encode_map(CUtensorMap* map, const void* ptr, const long long* dims,
-                const long long* strides, int rows) {
+// A tensor map of `rank` axes (extents innermost first, the byte strides of
+// axes 1 .. rank - 1, the box), elements of `type`, with `swizzle`.
+bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
+                  const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                  CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One operand's map: 4 extents (innermost first), the byte strides of axes
+// 1-3, and a bf16 box of 64 columns x `rows` rows, 128-byte swizzle.
+bool encode_map(CUtensorMap* map, const void* ptr, const long long* dims,
+                const long long* strides, int rows) {
   const cuuint64_t ext[4] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1], (cuuint64_t)dims[2],
                              (cuuint64_t)dims[3]};
   const cuuint64_t st[3] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1],
                             (cuuint64_t)strides[2]};
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), ext, st, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, ext, st, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Set a kernel's shared-memory limit once per device: `done` is the

@@ -37,6 +37,8 @@ ENTRY_POINTS = {
                   [_P] * 5 + [_I] * 5 + [_LL] * 13 + [_F, _I, _P]),
     "flash_fwd_sm90": ("flash_fwd_sm90", "hallo_flash_fwd_sm90",
                        [_P] * 6 + [_LLP] + [_I] * 5 + [_LL] * 4 + [_F] + [_I] * 5 + [_P]),
+    "flash_fwd_d512": ("flash_fwd_d512_sm90", "hallo_flash_fwd_d512_sm90",
+                       [_P] * 5 + [_LLP] + [_I] * 5 + [_LL] * 4 + [_F] + [_I] * 5 + [_P]),
     "flash_sm90_encode_ns": ("flash_fwd_sm90", "hallo_flash_sm90_encode_ns",
                              [_P] * 3 + [_LLP] + [_I] * 3),
     "flash_int8": ("flash_int8", "hallo_flash_int8", [_P] * 7 + [_I] * 6 + [_LL] * 4 + [_P]),
@@ -46,7 +48,8 @@ ENTRY_POINTS = {
                       [_P] * 9 + [_LLP, _LLP, _I, _F, _F, _P]),
     "flash_bwd_dq": ("flash_bwd_sm90", "hallo_flash_bwd_dq_sm90",
                      [_P] * 9 + [_LLP, _LLP, _I, _F, _F, _P]),
-    "winograd_conv3x3": ("winograd", "hallo_winograd_conv3x3", [_P] * 4 + [_I] * 7 + [_P]),
+    "winograd_conv3x3": ("winograd", "hallo_winograd_conv3x3",
+                         [_P] * 4 + [_LLP] + [_I] * 7 + [_P]),
     "layout_copy": ("layout_copy", "hallo_layout_copy", [_P, _P, _LL, _P]),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRY_POINTS.values()))

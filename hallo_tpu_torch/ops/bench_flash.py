@@ -1,14 +1,19 @@
-"""Milliseconds of the packed flash-attention kernels (K1 and K5) on the card
-at the stage-2 training shapes, beside PyTorch's SDPA on the same inputs.
+"""Milliseconds of the flash-attention kernels K1, K5 and K4 on the card at
+the main path's shapes, beside PyTorch's SDPA on the same inputs.
 
     python -m hallo_tpu_torch.ops.bench_flash [--iters 20] [--repeats 3]
+        [--k4-only]
 
 K1 at level 0 (B 2, Lq 4096, Lk 8192, C 320, 8 heads of d 40) without LSE,
 then K1 with its LSE and K5's two passes (`flash_bwd_dkv`, `flash_bwd_dq`)
 at the five attentions of a 512^2 step, B 14 (levels 0-2 with the
 CFG-uncond bias on the ref half of half the batch, audio Lk 32, identity
-Lk 4), each the median over `--repeats` runs of the mean of `--iters`
-launches after a warm-up (CUDA events). It uses only the entry points
+Lk 4); K4, the VAE mid-block's attention (one head of d 512, L 4096) at
+B 3 (the encode) and B 16 (the decode), and at d 128 (B 2, 4 heads, L
+2048) and d 256 (B 2, 2 heads, L 2048); each the median over `--repeats`
+runs of the mean of `--iters` launches after a warm-up (CUDA events); a
+shape the kernel refuses gets its error in place of a time.
+`--k4-only` times K4 alone. It uses only the entry points
 that every tree of the port since K5's first port has, so it also times
 an older tree when copied into it: compare two versions only within one
 machine session, in turns. It prints the card's name and power limit,
@@ -33,6 +38,11 @@ SHAPES = (  # name, B, Lq, Lk, C, the CFG-uncond bias
     ("identity", 14, 4096, 4, 320, False),
 )
 
+K4_SHAPES = (  # name, (B, H, L, d)
+    ("K4 B 3", (3, 1, 4096, 512)), ("K4 B 16", (16, 1, 4096, 512)),
+    ("K4 d 128", (2, 4, 2048, 128)), ("K4 d 256", (2, 2, 2048, 256)),
+)
+
 
 def _ms(fn, iters: int, repeats: int) -> float:
     fn()
@@ -54,6 +64,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--k4-only", action="store_true", help="time K4 alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_flash: no CUDA device")
@@ -69,6 +80,17 @@ def main() -> None:
         return _ms(fn, args.iters, args.repeats)
 
     result = {}
+    for name, shape in K4_SHAPES:
+        q, k, v = (randn(*shape) for _ in range(3))
+        try:
+            k4 = ms(lambda: flash.flash_attention(q, k, v))
+        except ValueError as exc:  # an older tree's kernel that does not take this d
+            k4 = str(exc)
+        result[name] = dict(k4=k4, sdpa=ms(lambda: F.scaled_dot_product_attention(q, k, v)))
+        del q, k, v
+    if args.k4_only:
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "ms": result}), flush=True)
+        return
     q, k, v = randn(2, 4096, 320), randn(2, 8192, 320), randn(2, 8192, 320)
     with torch.no_grad():
         result["K1 level 0 B 2"] = ms(lambda: flash.flash_attention_packed(q, k, v, heads=8))

@@ -1,6 +1,6 @@
 """Flash attention: the CUDA kernels `csrc/flash_fwd_sm90.cu`,
-`csrc/flash_fwd.cu`, `csrc/flash_int8.cu` and `csrc/flash_bwd_sm90.cu`, and
-their plain PyTorch versions.
+`csrc/flash_fwd_d512_sm90.cu`, `csrc/flash_fwd.cu`, `csrc/flash_int8.cu`
+and `csrc/flash_bwd_sm90.cu`, and their plain PyTorch versions.
 
 Counterpart of hallo_tpu/ops/pallas_flash.py. Its three forward layouts:
 
@@ -9,13 +9,14 @@ Counterpart of hallo_tpu/ops/pallas_flash.py. Its three forward layouts:
   through `flash_fwd_sm90.cu`, a Hopper kernel (TMA loads over the
   (B, L, H, d) view, wgmma products, a producer warp beside two or three
   consumer warpgroups); `sm90_plan` computes its tensor maps and tiles;
-- `flash_attention` heads-major (B, H, L, D), through `flash_fwd.cu`, which
-  reads (batch, token, head) strides: K3 (`_attention_kernel_t`)
-  when d % 128 != 0 -- the wav2vec2 self-attention, d = 64, fp32 I/O -- and
-  K4 (`_attention_kernel`) otherwise -- the VAE mid-block attention (one
-  head, d = 512, bf16). The TPU's transposed scores of K3 were an MXU layout
-  choice; on the card K3 and K4 are the same function and the same kernel,
-  and only the launch counts tell them apart, by JAX's rule.
+- `flash_attention` heads-major (B, H, L, D), by JAX's rule: K3
+  (`_attention_kernel_t`) when d % 128 != 0 -- the wav2vec2 self-attention,
+  d = 64, fp32 I/O -- through `flash_fwd.cu`, which reads (batch, token,
+  head) strides (the TPU's transposed scores of K3 were an MXU layout
+  choice); K4 (`_attention_kernel`) otherwise -- the VAE mid-block attention
+  (one head, d = 512, bf16) -- through `flash_fwd_d512_sm90.cu`, a Hopper
+  kernel like K1's for d = 128 n up to 512 (two consumer warpgroups that
+  each own half of d); `d512_plan` computes its tensor maps and tiles.
 
 `flash_attention_int8` (K6, `_attention_kernel_t_q8`) is the int8-score
 variant: the quantisation prelude in plain torch ops (XLA outside the
@@ -129,11 +130,12 @@ _TMA_MAX_DIM = 1 << 32
 
 
 class TmaMap(NamedTuple):
-    """One operand's 4-d tensor map, innermost axis first: its extents, the
-    byte strides of axes 1-3, and the box (64 columns, rows, 1, 1). Columns
-    and rows past the extents read as 0. A head's own map is (d, L, H, B);
-    a wide map, (H d, L, 1, B), spans a token's heads, and head h's box j
-    starts at column h d + 64 j."""
+    """One operand's tensor map, innermost axis first: its extents, the byte
+    strides of the other axes, and the box. K1's and K5's are 4-d with a box
+    of (64 columns, rows, 1, 1); columns and rows past the extents read as
+    0. A head's own map is (d, L, H, B); a wide map, (H d, L, 1, B), spans a
+    token's heads, and head h's box j starts at column h d + 64 j. K4's are
+    5-d (`d512_plan`)."""
 
     dims: Tuple[int, int, int, int]
     strides: Tuple[int, int, int]
@@ -159,22 +161,23 @@ class Sm90Plan(NamedTuple):
     zeroed: Tuple[str, ...]
 
 
-def _tma_map(name: str, shape, stride, rows: int, wide: bool) -> TmaMap:
-    """The map of a bf16 (B, L, H, d) operand with these element strides."""
+def _tma_map(name: str, shape, stride, rows: int, wide: bool, who: str = "K1") -> TmaMap:
+    """The map of a bf16 (B, L, H, d) operand with these element strides,
+    for kernel `who`."""
     b, l, h, d = shape
     if stride[3] != 1:
-        raise ValueError(f"K1 kernel: {name}'s head dim is not contiguous ({stride})")
+        raise ValueError(f"{who} kernel: {name}'s head dim is not contiguous ({stride})")
     strides = []
     for axis, n in ((1, l), (2, 1 if wide else h), (0, b)):
         s = 2 * stride[axis]
         if n == 1 and (s <= 0 or s % 16):
             s = 16  # an axis of extent 1 is never stepped
         if s <= 0 or s % 16 or s >= _TMA_MAX_STRIDE:
-            raise ValueError(f"K1 kernel: {name} strides {stride} unsupported "
+            raise ValueError(f"{who} kernel: {name} strides {stride} unsupported "
                              "(TMA takes positive multiples of 16 bytes below 2^40)")
         strides.append(s)
     if max(b, l, h * d) >= _TMA_MAX_DIM:
-        raise ValueError(f"K1 kernel: {name} shape {shape} too large for TMA")
+        raise ValueError(f"{who} kernel: {name} shape {shape} too large for TMA")
     dims = (h * d, l, 1, b) if wide else (d, l, h, b)
     return TmaMap(dims, tuple(strides), (SM90_BOX_COLS, rows, 1, 1))
 
@@ -206,11 +209,11 @@ def _plan(q_shape, q_stride, k_shape, k_stride, v_shape, v_stride) -> Sm90Plan:
         ("q", "k") if wide and d_qk > d else ())
 
 
-def _check_bf16_aligned(name: str, t: torch.Tensor) -> None:
+def _check_bf16_aligned(name: str, t: torch.Tensor, who: str = "K1") -> None:
     if t.dtype != torch.bfloat16:
-        raise TypeError(f"K1 kernel: {name} must be bf16, not {t.dtype}")
+        raise TypeError(f"{who} kernel: {name} must be bf16, not {t.dtype}")
     if t.data_ptr() % 16:
-        raise ValueError(f"K1 kernel: {name} is not 16-byte aligned")
+        raise ValueError(f"{who} kernel: {name} is not 16-byte aligned")
 
 
 def sm90_plan(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor) -> Sm90Plan:
@@ -294,7 +297,7 @@ def _heads_view(t: torch.Tensor, heads: int):
 
 @functools.lru_cache(maxsize=1024)
 def _heads_major_args(q_shape, q_stride, k_shape, k_stride, v_shape, v_stride, dtype):
-    """`flash_fwd.cu`'s (K3, K4) integer arguments for heads-major (B, H, L,
+    """`flash_fwd.cu`'s (K3) integer arguments for heads-major (B, H, L,
     D) q, k, v with these element strides and a fresh contiguous output:
     (B, H, Lq, Lk, D, then the (batch, token, head) strides of q, k, v and
     the output). Checks what the shapes and strides alone decide (a pure
@@ -303,8 +306,8 @@ def _heads_major_args(q_shape, q_stride, k_shape, k_stride, v_shape, v_stride, d
     lk = k_shape[2]
     if k_shape != (b, h, lk, d) or v_shape != k_shape:
         raise ValueError(f"flash attention: q {q_shape}, k {k_shape}, v {v_shape} do not match")
-    if not (d % 8 == 0 and (d <= 160 or d == 512)):
-        raise ValueError(f"flash attention kernel: head dim {d} unsupported")
+    if d % 8 or d > 160:
+        raise ValueError(f"K3 kernel: head dim {d} unsupported (multiples of 8 up to 160)")
     per16 = 16 // dtype.itemsize
     for name, shape, stride in (("q", q_shape, q_stride), ("k", k_shape, k_stride),
                                 ("v", v_shape, v_stride)):
@@ -314,6 +317,113 @@ def _heads_major_args(q_shape, q_stride, k_shape, k_stride, v_shape, v_stride, d
     o_strides = (h * lq * d, d, lq * d)
     return (b, h, lq, lk, d, *(t[i] for t in (q_stride, k_stride, v_stride) for i in (0, 2, 1)),
             *o_strides)
+
+
+# K4's Hopper kernel, csrc/flash_fwd_d512_sm90.cu: its tile configuration,
+# mirrored here to describe the TMA boxes and the grid (the kernel checks
+# them against its instantiation at every launch).
+D512_BLOCK_Q = 64  # query rows a block: two consumer warpgroups, each half of d
+D512_BLOCK_K = 32  # keys a K/V tile
+D512_CLUSTER = 2  # CTAs that share each K/V tile (each loads 1/2, multicast)
+D512_MAX_D = 512
+# K/V tiles in the ring by head dim: as many as shared memory holds beside Q
+# (64 rows x d) and the exchange of S's halves, at most 4 (the kernel's
+# Tiles<D>::kStages, which static_asserts that one more would not fit)
+D512_STAGES = {128: 4, 256: 4, 384: 3, 512: 2}
+
+
+class D512Plan(NamedTuple):
+    """What `flash_fwd_d512_sm90.cu` is launched with for one call: 5-d
+    maps (64 columns, L, d / 64 column blocks, H, B) of q, k, v, so that one
+    box brings a whole tile (K's and V's: a cluster CTA's share of the column
+    blocks, multicast to both), and a ring of `stages` K/V tiles
+    (`D512_STAGES`)."""
+
+    q: TmaMap
+    k: TmaMap
+    v: TmaMap
+    d: int
+    boxes: int  # 64-column boxes along d
+    block_q: int
+    block_k: int
+    stages: int
+    cluster: int
+    grid: Tuple[int, int, int]  # (query tiles rounded up to the cluster, H, B)
+
+
+@functools.lru_cache(maxsize=256)
+def _d512_plan(q_shape, q_stride, k_shape, k_stride, v_shape, v_stride) -> D512Plan:
+    """`d512_plan` from heads-major (B, H, L, d) shapes and element strides
+    (a pure function: the main path repeats its shapes)."""
+    b, h, lq, d = q_shape
+    lk = k_shape[2]
+    if k_shape != (b, h, lk, d) or v_shape != k_shape:
+        raise ValueError(f"K4 kernel: q {q_shape}, k {k_shape}, v {v_shape} do not match")
+    if d % 128 or not 128 <= d <= D512_MAX_D:
+        raise ValueError(f"K4 kernel: head dim {d} unsupported (128, 256, 384 or 512)")
+    if lq < 1 or lk < 1:
+        raise ValueError(f"K4 kernel: empty sequence (Lq {lq}, Lk {lk})")
+
+    boxes = d // 64
+
+    def tma(name, shape, stride, rows, blocks):
+        # (B, H, L, d) -> the map of the (B, L, H, d) view, then its d split
+        # into (64 columns, column blocks): (64, L, d / 64, H, B)
+        m = _tma_map(name, (shape[0], shape[2], shape[1], shape[3]),
+                     (stride[0], stride[2], stride[1], stride[3]), rows, False, "K4")
+        return TmaMap((SM90_BOX_COLS, m.dims[1], boxes, *m.dims[2:]),
+                      (m.strides[0], 2 * SM90_BOX_COLS, *m.strides[1:]),
+                      (SM90_BOX_COLS, rows, blocks, 1, 1))
+
+    blocks = boxes // D512_CLUSTER  # a CTA's share of a K/V tile (multicast)
+    tiles = -(-lq // D512_BLOCK_Q)
+    return D512Plan(tma("q", q_shape, q_stride, D512_BLOCK_Q, boxes),
+                    tma("k", k_shape, k_stride, D512_BLOCK_K, blocks),
+                    tma("v", v_shape, v_stride, D512_BLOCK_K, blocks), d, boxes, D512_BLOCK_Q,
+                    D512_BLOCK_K, D512_STAGES[d], D512_CLUSTER,
+                    (-(-tiles // D512_CLUSTER) * D512_CLUSTER, h, b))
+
+
+def d512_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> D512Plan:
+    """The tensor maps, tiles and grid of K4's Hopper kernel for heads-major
+    (B, H, L, d) bf16 q, k, v (any strides, d contiguous). Raises on what
+    the kernel does not take: another dtype, d other than 128, 256, 384 or
+    512, strides or addresses TMA cannot read, mismatched shapes. Columns
+    past d never occur (d is whole boxes); query rows past Lq and keys past
+    Lk read as 0."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_bf16_aligned(name, t, "K4")
+    return _d512_plan(tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
+                      tuple(v.shape), v.stride())
+
+
+def flash_forward_d512(q, k, v, bias=None, scale=None) -> torch.Tensor:
+    """K4 on CUDA tensors, heads-major (B, H, L, d), d = 128 n up to 512:
+    `flash_fwd_d512_sm90.cu`. fp32 q, k, v are rounded to bf16 first (the
+    tensor cores' operands) and the output is fp32, as the input."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    _forward_only("flash_forward_d512", q, k, v)
+    _check_devices(q, k, v)
+    if bias is not None and bias.device != q.device:
+        raise ValueError("flash attention: bias on another device than q")
+    out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    if q.dtype != torch.bfloat16:
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    plan = d512_plan(q, k, v)
+    tiled = _tile_bias(bias, b, lk, plan.block_k)
+    _build.call(
+        "flash_fwd_d512",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if tiled is None else tiled.data_ptr(), out.data_ptr(), _map_args(plan),
+        b, h, lq, lk, d, h * lq * d, d, lq * d, 0 if tiled is None else tiled.stride(0),
+        float(scale) * _LOG2E, int(out.dtype == torch.float32), plan.block_q, plan.block_k,
+        plan.stages, plan.cluster, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    LAUNCHES["flash_fwd"] += 1
+    return out
 
 
 def flash_attention_packed(
@@ -417,7 +527,7 @@ def flash_backward_reference(q, k, v, bias, out, lse, g, heads: int, scale=None)
 # the tiles and stages against their instantiation at every launch).
 BWD_CONSUMERS = 2  # consumer warpgroups of 64 rows
 BWD_DKV_KEYS = 64 * BWD_CONSUMERS  # keys per dK/dV CTA
-BWD_DKV_STAGES = 3  # the Q/dO ring of the dK/dV pass
+BWD_DKV_STAGES = 4  # the Q/dO ring of the dK/dV pass (even: see the kernel)
 BWD_DQ_ROWS = 64 * BWD_CONSUMERS  # queries per dQ tile
 BWD_STAT_ROWS = 64  # LSE and Delta are padded to a multiple of this
 H100_SMS = 132
@@ -729,7 +839,9 @@ def flash_attention(
     broadcastable to (B, Lk). Returns (B, H, Lq, D) in q's dtype. fp32 q/k/v
     are rounded to bf16 for the tensor cores (the TPU MXU's default
     precision); softmax and accumulation are fp32 either way. Forward only:
-    on the card, an input that needs a gradient raises."""
+    on the card, an input that needs a gradient raises. K3 takes D a
+    multiple of 8 up to 160, K4 D = 128, 256, 384 or 512; any other D raises
+    on the card."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if scale is None:
@@ -739,6 +851,8 @@ def flash_attention(
         return attention_reference(
             q, k, v, None if kb is None else kb[:, None, None, :], scale
         )
+    if d % 128 == 0:
+        return flash_forward_d512(q, k, v, bias, scale)
     _forward_only("flash_attention", q, k, v)
     _check_devices(q, k, v)
     ints = _heads_major_args(tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
@@ -756,7 +870,7 @@ def flash_attention(
         0 if kb is None else kb.stride(0), float(scale) * _LOG2E, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    LAUNCHES["flash_fwd_t" if d % 128 else "flash_fwd"] += 1
+    LAUNCHES["flash_fwd_t"] += 1
     return out
 
 

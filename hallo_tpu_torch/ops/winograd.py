@@ -1,5 +1,6 @@
-"""Winograd F(2x2, 3x3) convolution: the CUDA kernel `csrc/winograd.cu` and
-its plain PyTorch version.
+"""Winograd F(2x2, 3x3) convolution: the CUDA kernel `csrc/winograd.cu` (a
+Hopper kernel: TMA loads, wgmma products, a producer warp; `winograd_plan`
+computes its tensor maps and grid) and its plain PyTorch version.
 
 Counterpart of hallo_tpu/ops/pallas_winograd.py (K8, `_wino_kernel`), at the
 JAX layouts: x is NHWC, the kernel HWIO (3, 3, C, Co), the output NHWC. A
@@ -28,14 +29,16 @@ limits of the TPU and are dropped (ROADMAP Queue 3).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from hallo_tpu_torch.ops import _build
-from hallo_tpu_torch.ops.flash import _forward_only
+from hallo_tpu_torch.ops.flash import H100_SMS, TmaMap, _forward_only, _sms
 
 LAUNCHES = {"winograd_conv3x3": 0}
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}  # the kernel's I/O type codes
@@ -158,6 +161,80 @@ def kernel_weights(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return u.contiguous()
 
 
+# The kernel's tiles (csrc/winograd.cu), mirrored here to describe its
+# tensor maps and grid (the kernel checks the maps' extents).
+WINO_TILES = 8  # a unit of work: 8 x 8 output tiles (16 x 16 pixels) ...
+WINO_TN = 64  # ... x 64 output channels
+WINO_HALO = 2 * WINO_TILES + 2  # the unit's 18 x 18 input pixels
+WINO_CK = 16  # input channels a step
+WINO_CLUSTER = 2  # CTAs sharing each U slice (each loads half the positions)
+
+
+class WinogradPlan(NamedTuple):
+    """What `csrc/winograd.cu` is launched with: x's map over (C, W, H, N)
+    with one 18 x 18-pixel halo of 16 channels a box (its zero fill past the
+    image is the padding), U's over (Co, C, 16, 1) with a box of 64 output
+    channels x 16 channels x the 8 positions a cluster's CTA loads, y's over
+    (Co, W, H, N) with a box of one unit's 16 x 16 pixels x 64 channels (one
+    TMA store a unit); a persistent grid of clusters, each walking the units
+    (a pair of 8 x 8-tile patches x a 64-channel slice) a grid apart."""
+
+    x: TmaMap
+    u: TmaMap
+    y: TmaMap
+    c: int  # channels as the kernel reads them: C rounded up to 16, zeros appended
+    co: int  # output channels as the kernel writes them: Co rounded up to 8
+    steps: int
+    patches: Tuple[int, int]  # 8 x 8-tile patches along H and W
+    units: int  # patch pairs x 64-channel slices
+    grid: int  # CTAs: clusters x WINO_CLUSTER, at most one a SM
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(n: int, h: int, w: int, c: int, co: int, elem: int, sms: int) -> WinogradPlan:
+    if min(n, h, w, c, co) <= 0 or h % 2 or w % 2:
+        raise ValueError(f"winograd conv: x ({n}, {h}, {w}, {c}) -> {co} unsupported "
+                         "(H and W even, no empty axis)")
+    if elem not in (2, 4):
+        raise TypeError(f"winograd conv kernel takes bf16 or fp32 x, not {elem}-byte elements")
+    cp = -(-c // WINO_CK) * WINO_CK
+    cop = co + (-co % 8)
+    ph, pw = -(-(h // 2) // WINO_TILES), -(-(w // 2) // WINO_TILES)
+    units = -(-(n * ph * pw) // WINO_CLUSTER) * -(-cop // WINO_TN)
+    if units >= 2 ** 30:
+        raise ValueError(f"winograd conv: x ({n}, {h}, {w}, {c}) -> {co} too large")
+    clusters = max(1, min(units, sms // WINO_CLUSTER))
+    xm = TmaMap((cp, w, h, n), (elem * cp, elem * cp * w, elem * cp * w * h),
+                 (WINO_CK, WINO_HALO, WINO_HALO, 1))
+    um = TmaMap((cop, cp, 16, 1), (2 * cop, 2 * cop * cp, 2 * cop * cp * 16),
+                 (WINO_TN, WINO_CK, 16 // WINO_CLUSTER, 1))
+    ym = TmaMap((cop, w, h, n), (elem * cop, elem * cop * w, elem * cop * w * h),
+                 (WINO_TN, 2 * WINO_TILES, 2 * WINO_TILES, 1))
+    return WinogradPlan(xm, um, ym, cp, cop, cp // WINO_CK, (ph, pw), units,
+                        clusters * WINO_CLUSTER)
+
+
+def winograd_plan(x: torch.Tensor, co: int, sms: int = H100_SMS) -> WinogradPlan:
+    """The tensor maps and grid of the kernel for NHWC x (bf16 or fp32) and
+    `co` output channels on a card of `sms` SMs. Raises on what the kernel
+    does not take: another dtype, odd H or W, an empty axis, too many units.
+    C that is not a multiple of 16 is read from a copy with zero channels
+    appended (TMA's strides must be multiples of 16 bytes, and a box of 16
+    channels then never runs past C); Co that is not a multiple of 8 is
+    written into a copy with zero channels appended (the output map's
+    strides), and cut back."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"winograd conv kernel takes bf16 or fp32 x, not {x.dtype}")
+    return _plan(*x.shape, co, x.element_size(), sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _map_args(plan: WinogradPlan):
+    """The kernel's `maps` argument: x's, U's and y's extents and strides."""
+    vals = [v for m in (plan.x, plan.u, plan.y) for v in (*m.dims, *m.strides)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
 def _winograd_kernel(x, kernel, bias) -> torch.Tensor:
     """K8 on CUDA tensors: the weight transform, then the kernel."""
     for name, t in (("x", x), ("kernel", kernel)):
@@ -170,32 +247,35 @@ def winograd_launch(
     x: torch.Tensor, u: torch.Tensor, co: int, bias: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """The kernel alone, on `kernel_weights`' U: x (N, H, W, C) contiguous
-    bf16 or fp32 on the card, H and W even -> (N, H, W, co) in x's dtype."""
+    bf16 or fp32 on the card, H and W even -> (N, H, W, co) in x's dtype.
+    C that is not a multiple of 16, or co not of 8, takes copies with zero
+    channels appended (`winograd_plan`)."""
     n, h, w, c = x.shape
     for name, t in (("x", x), ("U", u)) + (() if bias is None else (("bias", bias),)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"winograd conv: {name} on {t.device}, x on {x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"winograd conv kernel takes bf16 or fp32 x, not {x.dtype}")
-    if not x.is_contiguous() or x.data_ptr() % 16 or h % 2 or w % 2:
-        raise ValueError("winograd conv: x must be contiguous, 16-byte aligned, H and W even")
-    cop = co + (-co % 8)
-    if u.dtype != torch.bfloat16 or tuple(u.shape) != (16, c, cop) or not u.is_contiguous():
-        raise ValueError(f"winograd conv: U must be contiguous bf16 (16, {c}, {cop})")
+    plan = winograd_plan(x, co, _sms(x.device))
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("winograd conv: x must be contiguous and 16-byte aligned")
+    if u.dtype != torch.bfloat16 or tuple(u.shape) != (16, c, plan.co) or not u.is_contiguous():
+        raise ValueError(f"winograd conv: U must be contiguous bf16 (16, {c}, {plan.co})")
+    if plan.c != c:
+        x = F.pad(x, (0, plan.c - c))
+        u = F.pad(u, (0, 0, 0, plan.c - c))
     b = None
     if bias is not None:
         if bias.numel() != co:
             raise ValueError(f"winograd conv: bias has {bias.numel()} values, want {co}")
-        b = bias.float().contiguous()
-    y = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
+        b = F.pad(bias.float().reshape(co), (0, plan.co - co))
+    y = torch.empty((n, h, w, plan.co), dtype=x.dtype, device=x.device)
     _build.call(
         "winograd_conv3x3",
         x.data_ptr(), u.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
-        n, h, w, c, co, cop, _DTYPES[x.dtype],
+        _map_args(plan), n, h, w, plan.c, plan.co, _DTYPES[x.dtype], plan.grid,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     LAUNCHES["winograd_conv3x3"] += 1
-    return y
+    return y if plan.co == co else y[..., :co].contiguous()
 
 
 class WinogradConvFn(torch.autograd.Function):

@@ -7,7 +7,9 @@ The full-width models (random weights from a seed, bf16) drive
 frames, CFG, DDIM at `--steps`) on random inputs from a seed. The first clip
 carries the warm-up and is left out. It prints the card's name and power
 limit, then one JSON line: every denoiser step's seconds, their median
-after the first clip, and K1's launches. Times on one card spread between
+after the first clip, every clip's VAE encode and decode seconds (the
+phases that launch K4) with their medians after the first clip, and K1's
+and K4's launches a clip. Times on one card spread between
 runs (PERF.md): compare two versions of the code only within one machine
 session, in turns.
 """
@@ -44,14 +46,18 @@ def main() -> None:
     inputs = dummy_clip_inputs(models, 512, 512, clip, batch=1, seed=0)
     inputs["audio_windows"] = np.concatenate([inputs["audio_windows"]] * args.clips)
     timings: dict = {}
-    flash.LAUNCHES["flash_fwd_packed"] = 0
+    flash.LAUNCHES["flash_fwd_packed"] = flash.LAUNCHES["flash_fwd"] = 0
     pipe(**inputs, seed=0, timings=timings)
     torch.cuda.synchronize()
     steps = timings["denoise_step"]
     print(json.dumps(dict(
         denoise_step_seconds=steps,
         median_after_first_clip=float(np.median(steps[args.steps:])),
-        k1_launches_per_clip=flash.LAUNCHES["flash_fwd_packed"] / args.clips)), flush=True)
+        vae_encode_seconds=timings["vae_encode"], vae_decode_seconds=timings["vae_decode"],
+        vae_encode_median_after_first_clip=float(np.median(timings["vae_encode"][1:])),
+        vae_decode_median_after_first_clip=float(np.median(timings["vae_decode"][1:])),
+        k1_launches_per_clip=flash.LAUNCHES["flash_fwd_packed"] / args.clips,
+        k4_launches_per_clip=flash.LAUNCHES["flash_fwd"] / args.clips)), flush=True)
 
 
 if __name__ == "__main__":

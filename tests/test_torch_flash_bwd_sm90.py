@@ -37,12 +37,40 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
+def _stage_owners(stages: int, tiles: int) -> dict:
+    """Which consumers read each stage of the dK/dV ring when the two take
+    alternate query tiles (tile i in stage i % stages, consumer i % 2)."""
+    owners = {}
+    for i in range(tiles):
+        owners.setdefault(i % stages, set()).add(i % 2)
+    return owners
+
+
+@pytest.mark.parametrize("lk", [1, 4, 32, 33, 64])
+@pytest.mark.parametrize("d", [8, 40, 64, 96, 128, 160])
+def test_dkv_ring_under_alternate_tiles_gives_each_stage_one_reader(d, lk):
+    """At Lk <= 64 the dK/dV pass's two consumers take alternate query
+    tiles. A consumer waits on a stage by the parity of its phase, which
+    is only sound if it has waited on every earlier phase of that stage:
+    each stage must be read by one consumer alone. A ring of 3 (the first
+    design) shares every stage, and a wait on tile i could pass while tile
+    i - 3, the other consumer's, was still landing (non-finite dK and dV,
+    now and then, in training's audio attention)."""
+    b, lq, heads = 14, 1024, 8
+    plan = flash.bwd_plan(*_natural(b, lq, lk, heads, d))
+    assert plan.dkv.wg_split
+    tiles = plan.dkv.tiles
+    assert tiles >= 2 * plan.dkv.stages  # every stage is reused
+    assert all(len(r) == 1 for r in _stage_owners(plan.dkv.stages, tiles).values())
+    assert any(len(r) == 2 for r in _stage_owners(3, tiles).values())
+
+
 @pytest.mark.parametrize("lk", [1, 33, 8192])
 @pytest.mark.parametrize("d", list(range(8, 161, 8)))
 def test_bwd_plan_of_natural_views(d, lk):
     """Contiguous (B, L, C = 8 d) tensors at every head dim the kernels take:
     wide maps with the views' own strides; the dK/dV pass takes 128 keys a
-    CTA, 64 queries a tile (32 above d 96) in a ring of 3, Q and dO boxes a
+    CTA, 64 queries a tile (32 above d 96) in a ring of 4, Q and dO boxes a
     tile high, K and V boxes the CTA's keys; the dQ pass takes 128 queries a
     CTA and 128 keys a tile (64 above d 96, 32 up to d 64 at Lk <= 32), K
     and V boxes half a tile (the cluster's multicast), 3 stages and two Q
@@ -57,7 +85,7 @@ def test_bwd_plan_of_natural_views(d, lk):
     assert (plan.lq_pad, plan.lk_pad) == (320, _cdiv(lk, 128) * 128)
     dkv, dq = plan.dkv, plan.dq
     block_q = 64 if d <= 96 else 32
-    assert (dkv.block_q, dkv.block_k, dkv.stages) == (block_q, 128, 3)
+    assert (dkv.block_q, dkv.block_k, dkv.stages) == (block_q, 128, 4)
     q_map = flash.TmaMap((c, lq, 1, b), (2 * c, 2 * d, 2 * lq * c), (64, block_q, 1, 1))
     kv_map = flash.TmaMap((c, lk, 1, b), (2 * c, 2 * d, 2 * lk * c), (64, 128, 1, 1))
     assert (dkv.q, dkv.g, dkv.k, dkv.v) == (q_map, q_map, kv_map, kv_map)

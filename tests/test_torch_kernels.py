@@ -16,7 +16,8 @@ typical |o| is ~sqrt(e / Lk), as small as 2e-2 at Lk 8192, and only the
 relative limit sees a dropped key tile or a slightly wrong scale there).
 On an H100 the relative errors read 1.7e-3 to 3.3e-3, and dropping the
 first 64 of 8192 keys reads 9.0e-2 (chip_smoke.py's kernel phase). K1 runs
-`csrc/flash_fwd_sm90.cu`, K3 and K4 `csrc/flash_fwd.cu`. K1's LSE and K5's
+`csrc/flash_fwd_sm90.cu`, K3 `csrc/flash_fwd.cu`, K4 `csrc/flash_fwd_d512_sm90.cu`
+and K8 `csrc/winograd.cu` (Hopper kernels). K1's LSE and K5's
 gradients, K8 (the Winograd conv) and K9 (the layout copy) have
 limits of their own (see their tests).
 """
@@ -140,6 +141,92 @@ def test_flash_kernel_d512_matches_plain(cuda_device):
     got = flash.flash_attention(q, k, v)
     want = attention.attention_reference(q.float(), k.float(), v.float())
     assert _close(got, want)
+
+
+def _k4(q, k, v, bias=None):
+    """K4 (`flash_fwd_d512_sm90.cu`), counting that it launched once."""
+    before = flash.LAUNCHES["flash_fwd"]
+    out = flash.flash_attention(q, k, v, bias=bias)
+    assert flash.LAUNCHES["flash_fwd"] == before + 1
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lk", [1, 33, 4096])
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+def test_sm90_d512_kernel_matches_plain(cuda_device, d, lk):
+    """K4's Hopper kernel at every head dim it takes (2, 4, 6 and 8
+    64-column blocks; 2 to 4 ring stages) and key lengths of one key, one
+    past a 32-key tile and many tiles, at a ragged Lq of 65 and 2 heads."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    q, k, v = (_bf16(gen, cuda_device, 2, 2, n, d) for n in (65, lk, lk))
+    got = _k4(q, k, v)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert _close(got, attention.attention_reference(q.float(), k.float(), v.float()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,lq", [(3, 4096), (16, 4096), (1, 4095)])
+def test_sm90_d512_kernel_at_the_vae_mid_block(cuda_device, b, lq):
+    """The main path's shapes, one head of d 512: the encode (B 3), the
+    decode (B 16), and all but one row of the last query tile; the plain
+    version runs one sample at a time."""
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    q, k, v = (_bf16(gen, cuda_device, b, 1, n, 512) for n in (lq, 4096, 4096))
+    got = _k4(q, k, v)
+    for i in range(b):
+        want = attention.attention_reference(q[i:i + 1].float(), k[i:i + 1].float(),
+                                             v[i:i + 1].float())
+        assert _close(got[i:i + 1], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sm90_d512_kernel_masked_keys_and_empty_rows(cuda_device, dtype):
+    """MASK_VALUE on the second half of the keys (batch 0), on every key
+    (batch 1: output 0) and on none (batch 2), with a ragged Lk of 300 (the
+    tiled bias's -inf past Lk); fp32 q, k, v are rounded to bf16 and the
+    output is fp32."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    q, k, v = (torch.randn(3, 2, n, 512, generator=gen, device=cuda_device).to(dtype)
+               for n in (200, 300, 300))
+    bias = torch.zeros(3, 300, device=cuda_device)
+    bias[0, 150:] = flash.MASK_VALUE
+    bias[1] = flash.MASK_VALUE
+    got = _k4(q, k, v, bias)
+    assert got.dtype == dtype
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    for i in (0, 2):
+        want = attention.attention_reference(
+            q[i:i + 1].float(), k[i:i + 1].float(), v[i:i + 1].float(),
+            bias[i:i + 1, None, None, :])
+        assert _close(got[i:i + 1], want)
+
+
+@pytest.mark.gpu
+def test_sm90_d512_and_winograd_kernels_are_bitwise_repeatable(cuda_device):
+    """K4 (its two consumers sum S's halves through shared memory behind
+    named barriers) and K8 (persistent CTAs, the two warpgroups' halves of Y
+    summed through shared memory) have no atomics: 20 launches at the
+    decode's and level 0's shapes give the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(24)
+    q, k, v = (_bf16(gen, cuda_device, 16, 1, 4096, 512) for _ in range(3))
+    x, kk, bias = _winograd_inputs(cuda_device, (32, 64, 64, 320), 320, torch.bfloat16, seed=11)
+    u = winograd.kernel_weights(kk, torch.bfloat16)
+    first = (flash.flash_attention(q, k, v), winograd.winograd_launch(x, u, 320, bias))
+    for _ in range(20):
+        again = (flash.flash_attention(q, k, v), winograd.winograd_launch(x, u, 320, bias))
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [192, 640])
+def test_sm90_d512_kernel_raises_for_other_wide_heads(cuda_device, d):
+    """No fallback: a head dim neither K3 (multiples of 8 up to 160) nor K4
+    (128 n up to 512) takes raises on the card."""
+    q = torch.zeros(1, 1, 64, d, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash.flash_attention(q, q, q)
 
 
 @pytest.mark.gpu
@@ -297,6 +384,30 @@ def test_winograd_kernel_matches_plain(cuda_device, shape, cout, dtype):
     got = winograd.winograd_conv3x3(x, k, bias)
     assert winograd.LAUNCHES["winograd_conv3x3"] == before + 1
     assert got.shape == (*shape[:3], cout) and got.dtype == dtype
+    assert _scaled_close(got, winograd.winograd_reference(x, k, bias))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape,cout,dtype",
+    [((4, 64, 64, 640), 320, torch.bfloat16), ((4, 64, 64, 960), 320, torch.bfloat16),
+     ((4, 32, 32, 640), 640, torch.bfloat16), ((3, 34, 18, 16), 64, torch.bfloat16),
+     ((1, 18, 30, 40), 24, torch.bfloat16), ((2, 6, 10, 33), 70, torch.float32),
+     ((5, 16, 16, 32), 64, torch.float32)],
+    ids=["level0_up", "level0_concat", "level1_res", "ragged_patches", "ragged_both",
+         "odd_channels_fp32", "odd_units_fp32"],
+)
+def test_winograd_sm90_kernel_matches_plain(cuda_device, shape, cout, dtype):
+    """K8's Hopper kernel against `winograd_reference` at the rest of the
+    denoiser's widths (batch 4), patches that H / 2 or W / 2 does not fill
+    (read as 0, not written), C and Co padded by the wrapper, and a patch
+    count the cluster of two does not divide (the last CTA's patch lies past
+    the batch); bf16 and fp32 I/O."""
+    x, k, bias = _winograd_inputs(cuda_device, shape, cout, dtype, seed=10)
+    before = winograd.LAUNCHES["winograd_conv3x3"]
+    got = winograd.winograd_conv3x3(x, k, bias)
+    assert winograd.LAUNCHES["winograd_conv3x3"] == before + 1
+    assert got.shape == (*shape[:3], cout) and got.dtype == dtype and got.is_contiguous()
     assert _scaled_close(got, winograd.winograd_reference(x, k, bias))
 
 
@@ -464,6 +575,29 @@ def test_sm90_backward_kernels_are_bitwise_repeatable(cuda_device, b, lq, lk, c)
     second = flash.flash_backward(q, k, v, None, out, lse, g, 8)
     for a, b2 in zip(first, second):
         assert torch.equal(a.view(torch.int16), b2.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,lq,lk,c", [(14, 256, 32, 1280), (14, 4096, 32, 320)],
+                         ids=["level2_audio", "level0_audio"])
+def test_sm90_dkv_alternate_tiles_repeat_over_many_launches(cuda_device, b, lq, lk, c):
+    """At Lk <= 64 the dK/dV pass's two consumers take alternate query
+    tiles through one ring: 300 launches at the training step's audio
+    shapes all give the first one's dK and dV bit for bit (a ring of 3
+    let a consumer read a stage still being filled: a non-finite dK and dV
+    now and then, placed in the trainer's level-2 audio attention)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(30)
+    q, k, v, g = (_bf16(gen, cuda_device, b, n, c) for n in (lq, lk, lk, lq))
+    out, lse = flash.flash_forward_packed(q, k, v, 8, None, with_lse=True)
+    a = flash.backward_args(q, k, v, None, out, lse, g, 8)
+    assert a.plan.dkv.wg_split
+    first = flash.flash_bwd_dkv(a)
+    assert all(bool(torch.isfinite(t).all()) for t in first)
+    runs = [flash.flash_bwd_dkv(a) for _ in range(300)]
+    bad = sum(not (torch.equal(dk.view(torch.int16), first[0].view(torch.int16))
+                   and torch.equal(dv.view(torch.int16), first[1].view(torch.int16)))
+              for dk, dv in runs)
+    assert bad == 0
 
 
 @pytest.mark.gpu
