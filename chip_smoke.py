@@ -28,9 +28,13 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    denoiser's five 3x3-conv shapes (CFG batch 32 = 2 x 16 frames at 512^2),
    fp32 and a small non-square one, each with its launch plan and host cost
    per call, against cuDNN's `F.conv2d` as the library call, and its autograd
-   entry against autograd of the direct conv; K9, the layout-anchor copy,
-   bit for bit, against `clone`. Nothing on a main path calls K8 or K9, in
-   either package: their launches are this phase's;
+   entry against autograd of the direct conv; K2 (the Hopper kernel
+   `temporal_attn_sm90.cu`: a TMA ring, mma.sync, persistent) at the
+   denoiser's four levels, training's shape and other frame counts, and at
+   K7's test cases, each with its launch plan and host cost per call; K9,
+   the layout-anchor copy (a ring of bulk copies), bit for bit, against
+   `clone`. Nothing on a main path calls K8 or K9, in either package: their
+   launches are this phase's;
 3. the driving audio: the full-width wav2vec2-base (random weights from a
    seed, fp32) through `AudioProcessor.preprocess` on
    `examples/driving_audios/1.wav` (3 s), on it tiled 4x (12 s) and, under
@@ -181,7 +185,7 @@ KERNELS = {
         replaces="hallo_tpu/ops/pallas_flash.py:236", launched_by="slice",
     ),
     "temporal_attn": dict(
-        tpu="K2", route="cuda", source="hallo_tpu_torch/csrc/temporal_attn.cu",
+        tpu="K2", route="cuda", source="hallo_tpu_torch/csrc/temporal_attn_sm90.cu",
         replaces="hallo_tpu/ops/pallas_temporal.py:42", launched_by="slice",
     ),
     "flash_fwd_t": dict(
@@ -199,7 +203,7 @@ KERNELS = {
     # Nothing dispatches K7 in either package: its launches are the kernel
     # phase's, at its own test cases.
     "temporal_attn_packed": dict(
-        tpu="K7", route="cuda", source="hallo_tpu_torch/csrc/temporal_attn.cu",
+        tpu="K7", route="cuda", source="hallo_tpu_torch/csrc/temporal_attn_sm90.cu",
         replaces="hallo_tpu/ops/pallas_temporal.py:104", launched_by="kernel phase",
     ),
     # Nothing calls K8 or K9 in either package (the op-level entry points
@@ -426,6 +430,7 @@ def kernel_cases(dev):
 
     def frames(row, label, b, f, l, c, heads):
         tq, tk, tv = randn(b, f, l, c), randn(b, f, l, c), randn(b, f, l, c)
+        plan = temporal.temporal_plan(tq, tk, tv, heads, CARD["sms"] or flash.H100_SMS)
 
         def per_site(t):  # (B, F, L, C) -> (B*L, H, F, d), made before timing
             return t.unflatten(3, (heads, c // heads)).permute(0, 2, 3, 1, 4).reshape(
@@ -436,13 +441,24 @@ def kernel_cases(dev):
             fn=lambda: temporal.temporal_attention(tq, tk, tv, heads=heads),
             plain=lambda: temporal.temporal_reference(tq.float(), tk.float(), tv.float(), heads),
             library=sdpa(per_site(tq), per_site(tk), per_site(tv)),
+            note=f"plan: {plan.heads_per_unit} heads x {plan.sites} sites a unit, {plan.boxes} "
+                 f"boxes of {plan.map.box} an operand ({plan.box_rows} rows), {plan.stages} "
+                 f"stages, {plan.units} units, grid {plan.grid}, {plan.k_tiles} key tiles",
+            host={"the K2 wrapper (temporal_attention)":
+                  lambda: temporal.temporal_attention(tq, tk, tv, heads=heads)},
             cost=(4 * 2 * b * f * l * c, 4.0 * b * l * c * f * f, 0.0))
 
+    # K2 at the 512^2 denoiser's four levels (B 2: the CFG batch; F 18: 16
+    # clip + 2 motion frames), training's level 0 (B 1, F 16 = 14 + 2), level
+    # 0 without motion frames, and another frame count
     for label, b, f, l, c in (
         ("K2 F 18 L 4096 C 320", 2, 18, 4096, 320),
         ("K2 F 16 L 4096 C 320 (level 0 without motion frames)", 2, 16, 4096, 320),
         ("K2 F 18 L 256 C 1280 d=160", 2, 18, 256, 1280),
         ("K2 F 17 L 1024 C 640 (any other frame count)", 2, 17, 1024, 640),
+        ("K2 level 1 F 18 L 1024 C 640 d=80", 2, 18, 1024, 640),
+        ("K2 level 3 F 18 L 64 C 1280 d=160", 2, 18, 64, 1280),
+        ("K2 training level 0 B 1 F 16 L 4096 C 320", 1, 16, 4096, 320),
     ):
         cases.append(frames("temporal_attn", label, b, f, l, c, 8))
     # K7's own test cases (tests/test_pallas_temporal.py), (B, F, heads, d, L)

@@ -2,8 +2,9 @@
 // loads with mbarrier completion, warpgroup matrix products (wgmma) with
 // operands in 128-byte-swizzled shared memory, named barriers and register
 // reallocation between warpgroups, and the host's tensor-map encoding.
-// flash_fwd_sm90.cu (K1), flash_fwd_d512_sm90.cu (K4), flash_bwd_sm90.cu (K5)
-// and winograd.cu (K8) use them.
+// flash_fwd_sm90.cu (K1), temporal_attn_sm90.cu (K2), flash_fwd_d512_sm90.cu
+// (K4), flash_bwd_sm90.cu (K5), winograd.cu (K8) and layout_copy.cu (K9) use
+// them.
 //
 // Shared-memory operand layout (what a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B and a box of 64 bf16 columns writes): each row
@@ -142,6 +143,30 @@ __device__ __forceinline__ void tma_load_5d_multicast(uint32_t dst, const void* 
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(c4)
       : "memory");
+}
+
+// A 4-d tiled store of shared memory at src to the box at (c0 .. c3) of a
+// tensor map (its parts past the extents are not written), in this thread's
+// bulk group.
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src, int c0, int c1, int c2,
+                                             int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until all but the newest N of this thread's bulk stores have read
+// their shared memory.
+template <int N = 0>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until this thread's bulk stores are complete.
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // A plain bulk copy of `bytes` (a multiple of 16, both addresses 16-byte

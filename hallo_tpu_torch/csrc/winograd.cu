@@ -143,29 +143,6 @@ __device__ __forceinline__ void gmma_rs64(float (&d)[8][4], const uint32_t (&a)[
 #undef WGMMA_RS64
 #undef WF4
 
-
-// A 4-d tiled store of shared memory at src to the box at (c0 .. c3) of a
-// tensor map (its parts past the extents are not written), in this thread's
-// bulk group.
-__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src, int c0, int c1, int c2,
-                                             int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
-      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Wait until this thread's bulk stores have read their shared memory.
-__device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// Wait until this thread's bulk stores are complete.
-__device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 template <typename T>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     winograd_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tu,

@@ -6,7 +6,7 @@ and compute in the dtype of their parameters. Image tensors are NCHW; video
 tensors are (B, F, C, H, W), so folding frames into the batch is a view.
 
 Attention goes through `ops/`: on the CPU the plain PyTorch math, on the card
-the hand-written kernels (`flash_fwd.cu`, `temporal_attn.cu`).
+the hand-written kernels (`flash_fwd_sm90.cu`, `temporal_attn_sm90.cu`).
 """
 
 from __future__ import annotations

@@ -42,15 +42,15 @@ ENTRY_POINTS = {
     "flash_sm90_encode_ns": ("flash_fwd_sm90", "hallo_flash_sm90_encode_ns",
                              [_P] * 3 + [_LLP] + [_I] * 3),
     "flash_int8": ("flash_int8", "hallo_flash_int8", [_P] * 7 + [_I] * 6 + [_LL] * 4 + [_P]),
-    "temporal_attn": ("temporal_attn", "hallo_temporal_attn",
-                      [_P] * 4 + [_I] * 6 + [_LL] * 3 + [_F, _P]),
+    "temporal_attn": ("temporal_attn_sm90", "hallo_temporal_attn_sm90",
+                      [_P] * 4 + [_LLP, _F, _P]),
     "flash_bwd_dkv": ("flash_bwd_sm90", "hallo_flash_bwd_dkv_sm90",
                       [_P] * 9 + [_LLP, _LLP, _I, _F, _F, _P]),
     "flash_bwd_dq": ("flash_bwd_sm90", "hallo_flash_bwd_dq_sm90",
                      [_P] * 9 + [_LLP, _LLP, _I, _F, _F, _P]),
     "winograd_conv3x3": ("winograd", "hallo_winograd_conv3x3",
                          [_P] * 4 + [_LLP] + [_I] * 7 + [_P]),
-    "layout_copy": ("layout_copy", "hallo_layout_copy", [_P, _P, _LL, _P]),
+    "layout_copy": ("layout_copy", "hallo_layout_copy", [_P, _P] + [_LL] * 3 + [_I, _P]),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRY_POINTS.values()))
 

@@ -16,8 +16,9 @@ typical |o| is ~sqrt(e / Lk), as small as 2e-2 at Lk 8192, and only the
 relative limit sees a dropped key tile or a slightly wrong scale there).
 On an H100 the relative errors read 1.7e-3 to 3.3e-3, and dropping the
 first 64 of 8192 keys reads 9.0e-2 (chip_smoke.py's kernel phase). K1 runs
-`csrc/flash_fwd_sm90.cu`, K3 `csrc/flash_fwd.cu`, K4 `csrc/flash_fwd_d512_sm90.cu`
-and K8 `csrc/winograd.cu` (Hopper kernels). K1's LSE and K5's
+`csrc/flash_fwd_sm90.cu`, K2 `csrc/temporal_attn_sm90.cu`, K3 `csrc/flash_fwd.cu`,
+K4 `csrc/flash_fwd_d512_sm90.cu`, K8 `csrc/winograd.cu` and K9
+`csrc/layout_copy.cu` (Hopper kernels). K1's LSE and K5's
 gradients, K8 (the Winograd conv) and K9 (the layout copy) have
 limits of their own (see their tests).
 """
@@ -268,8 +269,7 @@ def test_int8_kernel_matches_plain(cuda_device, case):
     "f,l,c", [(18, 4096, 320), (16, 4096, 320), (18, 256, 1280), (17, 77, 640)]
 )
 def test_temporal_kernel_matches_plain(cuda_device, f, l, c):
-    """F 16 and 18 take the kernel's compile-time frame counts, 17 the
-    general one."""
+    """F 16 and 18 (the main path's) and 17 (another) run the same kernel."""
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     q, k, v = (_bf16(gen, cuda_device, 2, f, l, c) for _ in range(3))
     got = temporal.temporal_attention(q, k, v, heads=8)
@@ -287,6 +287,103 @@ def test_temporal_kernel_at_packed_cases_matches_plain(cuda_device, b, f, heads,
     got = temporal.temporal_attention(q, k, v, heads=heads)
     want = temporal.temporal_reference(q.float(), k.float(), v.float(), heads)
     assert _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,l,c", [(2, 18, 4096, 320), (2, 18, 1024, 640), (2, 18, 256, 1280),
+                                     (2, 18, 64, 1280), (1, 16, 4096, 320)],
+                         ids=["level0", "level1", "level2", "level3", "training_level0"])
+def test_temporal_sm90_kernel_at_the_main_path(cuda_device, b, f, l, c):
+    """K2 (`temporal_attn_sm90.cu`) at the 512^2 denoiser's four levels (B
+    2, F 18 = 16 clip + 2 motion frames, 8 heads of d 40, 80, 160, 160) and
+    training's level 0 (B 1, F 16 = 14 + 2), one launch each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    q, k, v = (_bf16(gen, cuda_device, b, f, l, c) for _ in range(3))
+    before = temporal.LAUNCHES["temporal_attn"]
+    got = temporal.temporal_attention(q, k, v, heads=8)
+    assert temporal.LAUNCHES["temporal_attn"] == before + 1
+    assert _close(got, temporal.temporal_reference(q.float(), k.float(), v.float(), 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,l,heads,d", [
+    (2, 1, 77, 8, 40), (2, 17, 1024, 8, 80), (2, 32, 256, 8, 40), (1, 32, 64, 8, 160),
+    (2, 5, 203, 2, 16), (1, 6, 250, 2, 8), (2, 18, 77, 8, 72), (1, 32, 64, 8, 152),
+    (2, 18, 100, 10, 40), (1, 9, 33, 3, 24),
+], ids=["f1_ragged_sites", "f17", "f32", "f32_d160", "k7_d16_ragged_sites", "k7_d8",
+        "d72_ragged", "d152_shared_boxes", "partial_head_group", "f9_d24"])
+def test_temporal_sm90_kernel_frame_counts_and_ragged_sites(cuda_device, b, f, l, heads, d):
+    """Any F up to 32 runs the same kernel: F 1, 17 and 32, K7's head dims 8
+    and 16, L not a multiple of the unit's sites (F 1 takes 24 sites a unit,
+    F 5 25), d 72 (9 boxes), d 152 (units of fewer heads that share a box
+    with their neighbours), a last group of 2 of 10 heads, d 24."""
+    gen = torch.Generator(device=cuda_device).manual_seed(32)
+    q, k, v = (_bf16(gen, cuda_device, b, f, l, heads * d) for _ in range(3))
+    got = temporal.temporal_attention(q, k, v, heads=heads)
+    assert _close(got, temporal.temporal_reference(q.float(), k.float(), v.float(), heads))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 72])
+def test_temporal_sm90_keeps_a_neighbour_heads_inf_out(cuda_device, d):
+    """inf planted in head h + 1's first columns of q, k and v (which a box
+    holding head h's columns also holds) does not reach head h: the kernel
+    reads exactly each head's d columns. Head h equals the plain version on
+    head h alone; head h + 1 is non-finite, as the plain version's is."""
+    gen = torch.Generator(device=cuda_device).manual_seed(33)
+    heads, h = 4, 1
+    q, k, v = (_bf16(gen, cuda_device, 2, 18, 300, heads * d) for _ in range(3))
+    nxt = slice((h + 1) * d, (h + 1) * d + 8)
+    for t in (q, k, v):
+        t[..., nxt] = float("inf")
+    got = temporal.temporal_attention(q, k, v, heads=heads)
+    cols = slice(h * d, (h + 1) * d)
+    want = temporal.temporal_reference(*(t[..., cols].float() for t in (q, k, v)), 1)
+    assert torch.isfinite(got[..., cols]).all()
+    assert _close(got[..., cols], want)
+    assert not torch.isfinite(got[..., (h + 1) * d:(h + 2) * d]).all()
+
+
+@pytest.mark.gpu
+def test_temporal_sm90_and_layout_copy_repeat_over_many_launches(cuda_device):
+    """The rings' parity waits: 300 launches each of K2 (levels 1 and 3 at F
+    18, and training's F 16, where each CTA walks many units through its
+    ring) and of K9 (the level-0 activation, 39 or 40 stages a CTA) give the
+    first launch's output bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(34)
+    for b, f, l, c in ((2, 18, 1024, 640), (2, 18, 64, 1280), (1, 16, 4096, 320)):
+        q, k, v = (_bf16(gen, cuda_device, b, f, l, c) for _ in range(3))
+        first = temporal.temporal_attention(q, k, v, heads=8)
+        assert torch.isfinite(first).all()
+        bad = sum(not torch.equal(temporal.temporal_attention(q, k, v, heads=8).view(torch.int16),
+                                  first.view(torch.int16)) for _ in range(300))
+        assert bad == 0
+    x = _bf16(gen, cuda_device, 131072, 320)
+    bad = sum(not torch.equal(layout.layout_anchor(x).view(torch.int16), x.view(torch.int16))
+              for _ in range(300))
+    assert bad == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbytes,offset", [
+    (16384 - 16, 0), (16384 + 16, 0), (16384 * 12 - 2, 0), (16384 * 12 + 2, 0),
+    (16384 * 132 + 30, 0), (16384 * 12 + 7, 16), (16384 * 12 + 7, 6), (16384 * 12 + 7, 3),
+], ids=["below_a_stage", "above_a_stage", "below_the_ring", "above_the_ring",
+        "a_stage_past_the_grid", "view_16_bytes_in", "view_6_bytes_in", "view_3_bytes_in"])
+def test_layout_copy_around_ring_stages(cuda_device, nbytes, offset):
+    """K9 at sizes just below and above a ring stage (16 KB), the ring (12
+    stages) and one stage a CTA of the whole grid (132 CTAs), with ragged
+    tails; a source 16 bytes into its storage (aligned as the fresh output
+    is: a body and a tail), and sources 6 and 3 bytes in (the offsets differ
+    modulo 16: a byte a thread). Bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(35)
+    raw = torch.randint(0, 256, (nbytes + offset,), generator=gen, device=cuda_device,
+                        dtype=torch.uint8)
+    x = raw[offset:].view(1, nbytes)
+    got = layout.layout_anchor(x)
+    plan = layout.copy_plan(x.data_ptr(), got.data_ptr(), nbytes)
+    assert (plan.body > 0) == (offset % 16 == 0)
+    assert torch.equal(got, x)
 
 
 @pytest.mark.gpu
