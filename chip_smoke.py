@@ -33,12 +33,20 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    denoiser's four levels, training's shape and other frame counts, and at
    K7's test cases, each with its launch plan and host cost per call; K9,
    the layout-anchor copy (a ring of bulk copies), bit for bit, against
-   `clone`. Nothing on a main path calls K8 or K9, in either package: their
-   launches are this phase's;
+   `clone`; K3 (the Hopper kernel `flash_fwd_t_sm90.cu`: a TMA ring of
+   fp32 tiles, converter warps, wgmma) at the wav2vec2 attention's L 304
+   and 1056 and with half the keys masked, and K6 (`flash_int8_sm90.cu`:
+   the quantisation prelude as a kernel, then int8 wgmma behind a TMA
+   ring) at L 1056, half masked, ragged and L 4096, each with its launch
+   plan, device time by CUDA-graph replay and host cost per call, K6's
+   prelude and attention apart, and the prelude held against
+   `quantize_int8`. Nothing on a main path calls K8 or K9, in either
+   package: their launches are this phase's;
 3. the driving audio: the full-width wav2vec2-base (random weights from a
    seed, fp32) through `AudioProcessor.preprocess` on
    `examples/driving_audios/1.wav` (3 s), on it tiled 4x (12 s) and, under
-   HALLO_INT8_ATTN=1, 14x (42 s), counting K3's and K6's launches, each held
+   HALLO_INT8_ATTN=1, 14x (42 s), counting K3's and K6's launches (and the
+   prelude's, one per K6 call), each held
    against the same weights on the CPU in fp32;
 4. the slice: the full-width models (random weights from a seed, bf16) drive
    `FaceAnimatePipeline.__call__` at 512^2 with the windows of 1.wav's
@@ -82,6 +90,7 @@ from hallo_tpu_torch.data.audio_processor import AudioProcessor, load_wav
 from hallo_tpu_torch.models import wav2vec as wav2vec_module
 from hallo_tpu_torch.ops import _build, flash, layout, temporal, winograd
 from hallo_tpu_torch.ops.attention import attention_reference
+from hallo_tpu_torch.ops.bench_temporal import timings
 from hallo_tpu_torch.pipelines.face_animate import (
     FaceAnimatePipeline, HalloModels, window_audio_embeddings)
 from hallo_tpu_torch.train.bench_step import synthetic_batch
@@ -189,7 +198,7 @@ KERNELS = {
         replaces="hallo_tpu/ops/pallas_temporal.py:42", launched_by="slice",
     ),
     "flash_fwd_t": dict(
-        tpu="K3", route="cuda", source="hallo_tpu_torch/csrc/flash_fwd.cu",
+        tpu="K3", route="cuda", source="hallo_tpu_torch/csrc/flash_fwd_t_sm90.cu",
         replaces="hallo_tpu/ops/pallas_flash.py:120", launched_by="audio",
     ),
     "flash_fwd": dict(
@@ -197,8 +206,14 @@ KERNELS = {
         replaces="hallo_tpu/ops/pallas_flash.py:73", launched_by="slice",
     ),
     "flash_int8": dict(
-        tpu="K6", route="cuda", source="hallo_tpu_torch/csrc/flash_int8.cu",
+        tpu="K6", route="cuda", source="hallo_tpu_torch/csrc/flash_int8_sm90.cu",
         replaces="hallo_tpu/ops/pallas_flash.py:177", launched_by="audio",
+    ),
+    # K6's quantisation prelude (XLA ops before the Pallas call in JAX), a
+    # kernel of its own in the same source: one launch per K6 call
+    "int8_prelude": dict(
+        tpu="K6", route="cuda", source="hallo_tpu_torch/csrc/flash_int8_sm90.cu",
+        replaces="hallo_tpu/ops/pallas_flash.py:886", launched_by="audio",
     ),
     # Nothing dispatches K7 in either package: its launches are the kernel
     # phase's, at its own test cases.
@@ -393,40 +408,67 @@ def kernel_cases(dev):
                   (lambda q=q4, k=k4, v=v4: flash.flash_attention(q, k, v))},
             cost=attn_cost(b, h, lq, lq, d, 2, None), plain_iters=3))
 
-    # K3: the wav2vec2 self-attention, fp32, through the model's
-    # (B, T, H, d) -> (B, H, T, d) view; T = 304 (12 s of audio), 1056 (42 s).
-    for lq in (304, 1056):
+    # K3 (flash_fwd_t_sm90.cu): the wav2vec2 self-attention, fp32, through the
+    # model's (B, T, H, d) -> (B, H, T, d) view; T = 304 (12 s of audio),
+    # 1056 (42 s), and 1056 with half the keys at MASK_VALUE.
+    for lq, masked in ((304, False), (1056, False), (1056, True)):
         q3, k3, v3 = (randn(1, lq, 12, 64, dtype=torch.float32).transpose(1, 2)
                       for _ in range(3))
+        bias3 = None
+        if masked:
+            bias3 = torch.zeros(1, lq, device=dev)
+            bias3[:, lq // 2:] = flash.MASK_VALUE
+        plan = flash.heads_major_plan(q3, k3, v3)
+        kb3 = None if bias3 is None else bias3[:, None, None, :]
         cases.append(dict(
-            row="flash_fwd_t", label=f"K3 wav2vec2 fp32 B 1 H 12 d 64 L {lq}",
-            fn=(lambda q=q3, k=k3, v=v3: flash.flash_attention(q, k, v)),
-            plain=(lambda q=q3, k=k3, v=v3: attention_reference(q, k, v)),
-            library=sdpa(q3, k3, v3),
-            fault=(lambda q=q3, k=k3, v=v3: attention_reference(q, k[:, :, 64:], v[:, :, 64:])),
-            cost=attn_cost(1, 12, lq, lq, 64, 4, None)))
+            row="flash_fwd_t",
+            label=(f"K3 wav2vec2 fp32 B 1 H 12 d 64 L {lq}"
+                   f"{', half the keys masked' if masked else ''}"),
+            fn=(lambda q=q3, k=k3, v=v3, b=bias3: flash.flash_attention(q, k, v, bias=b)),
+            plain=(lambda q=q3, k=k3, v=v3, b=kb3: attention_reference(q, k, v, b)),
+            library=sdpa(q3, k3, v3, bias3),
+            fault=(lambda q=q3, k=k3, v=v3, b=kb3: attention_reference(
+                q, k[:, :, 64:], v[:, :, 64:], None if b is None else b[..., 64:])),
+            note=f"plan: block_q {plan.block_q}, block_k {plan.block_k}, {plan.slots} slots of "
+                 f"{plan.src_boxes} boxes {plan.k.box}, wide {plan.wide}, grid {plan.grid}",
+            host={"the K3 wrapper (flash_attention)":
+                  (lambda q=q3, k=k3, v=v3, b=bias3: flash.flash_attention(q, k, v, bias=b))},
+            graph=True, cost=attn_cost(1, 12, lq, lq, 64, 4, bias3)))
 
-    # K6: int8 scores at the 42-s audio's shape, fp32 V; plain, half the keys
-    # at MASK_VALUE, ragged Lk.
-    for label, lk, masked in (("plain", 1056, False), ("half the keys at MASK_VALUE", 1056, True),
-                              ("ragged Lk 1050", 1050, False)):
-        q6 = randn(1, 12, 1056, 64, dtype=torch.float32)
-        k6, v6 = (randn(1, 12, lk, 64, dtype=torch.float32) for _ in range(2))
+    # K6 (flash_int8_sm90.cu): int8 scores at the 42-s audio's shape, fp32 V;
+    # plain, half the keys at MASK_VALUE, ragged Lk, and L 4096 (about 2.7
+    # minutes of audio). Parts: the prelude kernel and the attention kernel.
+    for label, lq, lk, masked in (("plain", 1056, 1056, False),
+                                  ("half the keys at MASK_VALUE", 1056, 1056, True),
+                                  ("ragged Lk 1050", 1056, 1050, False),
+                                  ("L 4096", 4096, 4096, False)):
+        q6 = randn(1, lq, 12, 64, dtype=torch.float32).transpose(1, 2)
+        k6, v6 = (randn(1, lk, 12, 64, dtype=torch.float32).transpose(1, 2) for _ in range(2))
         bias6 = None
         if masked:
             bias6 = torch.zeros(1, lk, device=dev)
             bias6[:, lk // 2:] = flash.MASK_VALUE
+        plan = flash.int8_plan(q6, k6, v6)
+        ops6 = flash.int8_prelude(q6, k6, v6, bias=bias6)
         cases.append(dict(
-            row="flash_int8", label=f"K6 int8 B 1 H 12 d 64 L 1056, {label}",
+            row="flash_int8", label=f"K6 int8 B 1 H 12 d 64 L {lq}, {label}",
             fn=(lambda q=q6, k=k6, v=v6, b=bias6: flash.flash_attention_int8(q, k, v, bias=b)),
             plain=(lambda q=q6, k=k6, v=v6, b=bias6: flash.int8_reference(q, k, v, b)),
             library=sdpa(q6, k6, v6, bias6),
             fault=(lambda q=q6, k=k6, v=v6, b=bias6: flash.int8_reference(
                 q, k[:, :, 64:], v[:, :, 64:], None if b is None else b[:, 64:])),
-            parts=dict(prelude=(lambda q=q6, k=k6: flash.quantize_int8(q, k, 0.125)),
-                       kernel=(lambda b=bias6, v=v6, qk=flash.quantize_int8(q6, k6, 0.125):
-                               flash.flash_int8_quantized(*qk, v, bias=b))),
-            cost=attn_cost(1, 12, 1056, lk, 64, 4, bias6, int8=True)))
+            parts=dict(prelude=(lambda q=q6, k=k6, v=v6, b=bias6: flash.int8_prelude(
+                           q, k, v, bias=b)),
+                       attention=(lambda o=ops6: flash.int8_attention(o))),
+            note=f"plan: q8/k8 rows {plan.d_p} bytes, v16 rows {plan.d_vp}, block_q "
+                 f"{plan.block_q}, block_k {plan.block_k}, {plan.stages} stages, grid "
+                 f"{plan.grid}, prelude grid {plan.prelude_grid} (clusters of "
+                 f"{flash.INT8_PRELUDE_CLUSTER}), workspace {plan.workspace} bytes",
+            host={"the K6 wrapper (flash_attention_int8, both launches)":
+                  (lambda q=q6, k=k6, v=v6, b=bias6: flash.flash_attention_int8(q, k, v, bias=b))},
+            graph=True, plain_iters=3, cost=attn_cost(1, 12, lq, lk, 64, 4, bias6, int8=True)))
+        if label == "plain":
+            cases.append(prelude_case(q6, k6, v6))
 
     def frames(row, label, b, f, l, c, heads):
         tq, tk, tv = randn(b, f, l, c), randn(b, f, l, c), randn(b, f, l, c)
@@ -581,6 +623,62 @@ def layout_cases(dev, gen):
     return cases
 
 
+# The prelude kernel's k8 against `quantize_int8`'s: the K mean's summation
+# order may move a centred value across a rounding boundary of round(x / ks),
+# a difference of one. On an H100 that moved 0 of 811008 elements at L 1056
+# and 1 of 3145728 (3.2e-7) at L 4096; the bound leaves room for other data
+# (tests/test_torch_kernels.py holds the same one).
+K8_OFF_BY_ONE_SHARE = 1e-5
+
+
+def prelude_case(q, k, v):
+    """K6's prelude kernel against `quantize_int8` on the same inputs: q8
+    and qs (times scale log2 e) bit for bit (max abs error 0), and, in the
+    case's check, k8 within one step on at most K8_OFF_BY_ONE_SHARE of its
+    elements and ks to fp32 rounding. The planted fault is one q8 element
+    off by one."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    scale = d ** -0.5
+
+    def kernel():
+        ops = flash.int8_prelude(q, k, v)
+        return ops.q8[:, :, :d].reshape(b, h, lq, d), ops.qs.reshape(b, h, lq)
+
+    def plain():
+        q8, _, qs, _ = flash.quantize_int8(q, k, scale)
+        return q8, qs
+
+    def fault():
+        q8, qs = plain()
+        q8 = q8.clone()
+        q8.view(-1)[q8.numel() // 2] += 1 if q8.view(-1)[q8.numel() // 2] < 127 else -1
+        return q8, qs
+
+    def check():
+        ops = flash.int8_prelude(q, k, v)
+        _, k8, _, ks = flash.quantize_int8(q, k, scale)
+        off = ops.k8[:, :, :d].reshape(k8.shape).int() - k8.int()
+        share = (off != 0).float().mean().item()
+        ks_err = ((ops.meta[:, :lk, 0].reshape(ks.shape) - ks).abs() / ks).max().item()
+        if off.abs().max().item() > 1 or share > K8_OFF_BY_ONE_SHARE or ks_err > 2e-6:
+            raise RuntimeError(f"K6 prelude: k8 off by up to {off.abs().max().item()} on "
+                               f"{share:.3e} of its elements, ks relative error {ks_err:.3e}")
+        return (f"k8 off by one on {int((off != 0).sum())} of {off.numel()} elements "
+                f"({share:.3e}; bound {K8_OFF_BY_ONE_SHARE}), ks max relative error "
+                f"{ks_err:.3e}")
+
+    elem = q.element_size()
+    plan = flash.int8_plan(q, k, v)
+    written = (b * h * (lq + lk) * plan.d_p + 4 * b * h * lq + 8 * b * h * plan.lk_pad
+               + 2 * b * h * lk * plan.d_vp)
+    return dict(row="int8_prelude", label=f"K6 prelude B {b} H {h} d {d} L {lq}, fp32",
+                fn=kernel, plain=plain, library=None, fault=fault,
+                fault_name="one q8 element off by one", fault_by="abs", atol=0.0, rtol=0.0,
+                check=check, graph=True,
+                cost=(elem * b * h * d * (lq + 2 * lk) + written, 0.0, 0.0))
+
+
 def per_sample(fn, *tensors):
     """`fn` on each batch element alone, concatenated: bounds the plain
     versions' (H, Lq, Lk) fp32 temporaries at the training batch of 14."""
@@ -710,21 +808,33 @@ def phase_kernels(dev) -> dict:
             f_err, _, f_rel = _errors(case["fault"](), want)
             fault = f_err if case.get("fault_by") == "abs" else f_rel
         ms, plain_ms = cuda_ms(case["fn"]), cuda_ms(case["plain"], case.get("plain_iters", 20))
-        library_ms = cuda_ms(case["library"])
+        library_ms = None if case["library"] is None else cuda_ms(case["library"])
         launched = sum(launch_counts().values()) - before
         b_ms, b_by = bound_ms(*case["cost"])
         abs_name = "max_abs_err / max|plain|" if case.get("scaled") else "max_abs_err"
         log(f"{label}: {abs_name} {held:.3e} (atol {atol}) rel_err {rel:.3e} "
             f"(rtol {rtol}) max_abs_err {err:.3e} "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'} "
             f"bound {b_ms:.4f} ms ({b_by})")
         if "note" in case:
             log(f"  {case['note']}")
+        if case.get("graph"):
+            t = timings(case["fn"], 20, 3)
+            log(f"  device {t['graph_ms']:.4f} ms a call (CUDA-graph replay), "
+                f"{t['ms']:.4f} ms back to back, host {t['host_us']:.1f} us a call")
+        if "check" in case:
+            log(f"  {case['check']()}")
         if fault is not None:
             log(f"  planted fault, {case.get('fault_name', 'first keys dropped')}: "
                 f"{'max_abs_err' if case.get('fault_by') == 'abs' else 'rel_err'} {fault:.3e}")
         for part, part_fn in case.get("parts", {}).items():
-            log(f"  {part} alone: {cuda_ms(part_fn):.4f} ms")
+            if case.get("graph"):
+                t = timings(part_fn, 20, 3)
+                log(f"  {part} alone: {t['ms']:.4f} ms, device {t['graph_ms']:.4f} ms "
+                    f"(CUDA-graph replay), host {t['host_us']:.1f} us a call")
+            else:
+                log(f"  {part} alone: {cuda_ms(part_fn):.4f} ms")
         for part, part_fn in case.get("host", {}).items():
             log(f"  host cost of {part}: {host_us(part_fn):.1f} us a call")
         if not (held <= atol and rel <= rtol):
@@ -786,8 +896,27 @@ def log_small_call_host_costs(dev) -> None:
                     200)
     q3 = torch.zeros(1, 12, 8, 64, device=dev)
     k3_us = host_us(lambda: flash.flash_attention(q3, q3, q3), 200)
+    k6_us = host_us(lambda: flash.flash_attention_int8(q3, q3, q3), 200)
     log(f"K5 host cost: {k5_us:.2f} us per flash_backward call (Lq 1, Lk 1, both passes); "
-        f"K3 host cost: {k3_us:.2f} us per flash_attention call (fp32, L 8, host clock)")
+        f"K3 host cost: {k3_us:.2f} us per flash_attention call (fp32, L 8, host clock); "
+        f"K6 host cost: {k6_us:.2f} us per flash_attention_int8 call (both launches)")
+    # the tensor maps, encoded on the host for every launch (passed in the
+    # kernel's parameter space): their share of those costs, at the audio shape
+    q = torch.zeros(1, 1056, 12, 64, device=dev).transpose(1, 2)
+    n = 1000
+    _, args3 = flash._heads_major_args(tuple(q.shape), q.stride(), tuple(q.shape), q.stride(),
+                                       tuple(q.shape), q.stride(), q.dtype)
+    ns3 = _build.lib("flash_fwd_t_sm90").hallo_flash_fwd_t_encode_ns(
+        q.data_ptr(), q.data_ptr(), args3, n)
+    ops = flash.int8_prelude(q, q, q)
+    ws = ops.workspace.data_ptr()
+    o = ops.plan.offsets
+    ns6 = _build.lib("flash_int8_sm90").hallo_flash_int8_encode_ns(
+        ws + o[0], ws + o[1], ws + o[4], ops.args, n)
+    if ns3 < 0 or ns6 < 0:
+        raise RuntimeError("K3/K6: cuTensorMapEncodeTiled failed")
+    log(f"K3 host cost: {ns3 / n / 1e3:.2f} us to encode a call's two tensor maps; "
+        f"K6: {ns6 / n / 1e3:.2f} us for the attention kernel's three (L 1056)")
 
 
 def rel_err(got, want) -> float:
@@ -860,8 +989,9 @@ def phase_audio(dev, out_dir: str) -> dict:
         if not err <= AUDIO_RTOL:
             raise RuntimeError(f"{label}: card disagrees with the CPU fp32 reference ({err})")
         k3, k6 = counts["flash_fwd_t"], counts["flash_int8"]
-        if (k3, k6) != ((0, 12) if int8 else (12, 0)):
-            raise RuntimeError(f"{label}: K3 launched {k3}, K6 {k6} times in one forward")
+        if (k3, k6) != ((0, 12) if int8 else (12, 0)) or counts["int8_prelude"] != k6:
+            raise RuntimeError(f"{label}: K3 launched {k3}, K6 {k6} times in one forward "
+                               f"(its prelude {counts['int8_prelude']})")
         for key, n in counts.items():
             out["counts"][key] += n
         if tiles == 1:

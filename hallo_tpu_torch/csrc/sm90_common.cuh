@@ -2,8 +2,9 @@
 // loads with mbarrier completion, warpgroup matrix products (wgmma) with
 // operands in 128-byte-swizzled shared memory, named barriers and register
 // reallocation between warpgroups, and the host's tensor-map encoding.
-// flash_fwd_sm90.cu (K1), temporal_attn_sm90.cu (K2), flash_fwd_d512_sm90.cu
-// (K4), flash_bwd_sm90.cu (K5), winograd.cu (K8) and layout_copy.cu (K9) use
+// flash_fwd_sm90.cu (K1), temporal_attn_sm90.cu (K2), flash_fwd_t_sm90.cu
+// (K3), flash_fwd_d512_sm90.cu (K4), flash_bwd_sm90.cu (K5),
+// flash_int8_sm90.cu (K6), winograd.cu (K8) and layout_copy.cu (K9) use
 // them.
 //
 // Shared-memory operand layout (what a TMA load with

@@ -33,15 +33,19 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 # The C entry points: (source under csrc/, C name, argument types), by the
 # name `call` takes.
 ENTRY_POINTS = {
-    "flash_fwd": ("flash_fwd", "hallo_flash_fwd",
-                  [_P] * 5 + [_I] * 5 + [_LL] * 13 + [_F, _I, _P]),
+    "flash_fwd_t": ("flash_fwd_t_sm90", "hallo_flash_fwd_t_sm90", [_P] * 5 + [_LLP, _F, _P]),
+    "flash_fwd_t_encode_ns": ("flash_fwd_t_sm90", "hallo_flash_fwd_t_encode_ns",
+                              [_P, _P, _LLP, _I]),
     "flash_fwd_sm90": ("flash_fwd_sm90", "hallo_flash_fwd_sm90",
                        [_P] * 6 + [_LLP] + [_I] * 5 + [_LL] * 4 + [_F] + [_I] * 5 + [_P]),
     "flash_fwd_d512": ("flash_fwd_d512_sm90", "hallo_flash_fwd_d512_sm90",
                        [_P] * 5 + [_LLP] + [_I] * 5 + [_LL] * 4 + [_F] + [_I] * 5 + [_P]),
     "flash_sm90_encode_ns": ("flash_fwd_sm90", "hallo_flash_sm90_encode_ns",
                              [_P] * 3 + [_LLP] + [_I] * 3),
-    "flash_int8": ("flash_int8", "hallo_flash_int8", [_P] * 7 + [_I] * 6 + [_LL] * 4 + [_P]),
+    "int8_prelude": ("flash_int8_sm90", "hallo_int8_prelude", [_P] * 9 + [_LLP, _F, _P]),
+    "flash_int8": ("flash_int8_sm90", "hallo_flash_int8_sm90", [_P] * 6 + [_LLP, _P]),
+    "flash_int8_encode_ns": ("flash_int8_sm90", "hallo_flash_int8_encode_ns",
+                             [_P] * 3 + [_LLP, _I]),
     "temporal_attn": ("temporal_attn_sm90", "hallo_temporal_attn_sm90",
                       [_P] * 4 + [_LLP, _F, _P]),
     "flash_bwd_dkv": ("flash_bwd_sm90", "hallo_flash_bwd_dkv_sm90",

@@ -1,6 +1,7 @@
 """Flash attention: the CUDA kernels `csrc/flash_fwd_sm90.cu`,
-`csrc/flash_fwd_d512_sm90.cu`, `csrc/flash_fwd.cu`, `csrc/flash_int8.cu`
-and `csrc/flash_bwd_sm90.cu`, and their plain PyTorch versions.
+`csrc/flash_fwd_d512_sm90.cu`, `csrc/flash_fwd_t_sm90.cu`,
+`csrc/flash_int8_sm90.cu` and `csrc/flash_bwd_sm90.cu`, and their plain
+PyTorch versions.
 
 Counterpart of hallo_tpu/ops/pallas_flash.py. Its three forward layouts:
 
@@ -11,16 +12,22 @@ Counterpart of hallo_tpu/ops/pallas_flash.py. Its three forward layouts:
   consumer warpgroups); `sm90_plan` computes its tensor maps and tiles;
 - `flash_attention` heads-major (B, H, L, D), by JAX's rule: K3
   (`_attention_kernel_t`) when d % 128 != 0 -- the wav2vec2 self-attention,
-  d = 64, fp32 I/O -- through `flash_fwd.cu`, which reads (batch, token,
-  head) strides (the TPU's transposed scores of K3 were an MXU layout
-  choice); K4 (`_attention_kernel`) otherwise -- the VAE mid-block attention
+  d = 64, fp32 I/O -- through `flash_fwd_t_sm90.cu`, a Hopper kernel that
+  reads K and V in their own type by TMA over the (B, L, H, d) view,
+  converts them to bf16 tiles in warps of its own and runs K1's wgmma
+  consumers (the TPU's transposed scores of K3 were an MXU layout choice);
+  `heads_major_plan` computes its maps and tiles; K4 (`_attention_kernel`)
+  otherwise -- the VAE mid-block attention
   (one head, d = 512, bf16) -- through `flash_fwd_d512_sm90.cu`, a Hopper
   kernel like K1's for d = 128 n up to 512 (two consumer warpgroups that
   each own half of d); `d512_plan` computes its tensor maps and tiles.
 
 `flash_attention_int8` (K6, `_attention_kernel_t_q8`) is the int8-score
-variant: the quantisation prelude in plain torch ops (XLA outside the
-Pallas call in JAX), then `flash_int8.cu`.
+variant, two launches of `flash_int8_sm90.cu`: the quantisation prelude as
+a kernel (XLA ops outside the Pallas call in JAX; `quantize_int8` is its
+plain version), then the attention kernel (int8 wgmma for QK^T, bf16 for
+PV, behind a TMA ring); `int8_plan` lays out the prelude's buffers and the
+kernels' maps.
 
 Training: when grad mode is on and q, k or v needs a gradient,
 `flash_attention_packed` runs `FlashPackedFn` (JAX's `_flash_packed`
@@ -53,8 +60,8 @@ from hallo_tpu_torch.ops import _build
 from hallo_tpu_torch.ops.attention import attention_reference
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-LAUNCHES = {"flash_fwd_packed": 0, "flash_fwd_t": 0, "flash_fwd": 0, "flash_int8": 0,
-            "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+LAUNCHES = {"flash_fwd_packed": 0, "flash_fwd_t": 0, "flash_fwd": 0, "int8_prelude": 0,
+            "flash_int8": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 
@@ -127,6 +134,7 @@ SM90_STAGES = 3  # the K/V ring
 SM90_CLUSTER = 2  # CTAs that share each K/V tile (each loads 1/2, multicast)
 _TMA_MAX_STRIDE = 1 << 40
 _TMA_MAX_DIM = 1 << 32
+H100_SMS = 132
 
 
 class TmaMap(NamedTuple):
@@ -295,28 +303,190 @@ def _heads_view(t: torch.Tensor, heads: int):
     return (b, l, heads, d), (sb, sl, d * sc, sc)
 
 
+# K3's Hopper kernel, csrc/flash_fwd_t_sm90.cu: its tile configuration,
+# mirrored here to describe the TMA boxes, the ring and the grid (the kernel
+# checks block_q, block_k and slots against its instantiation at every
+# launch). Widths are instantiated at d rounded up to 32.
+T_MAX_D = 160
+SMEM_LIMIT = 232448  # the shared memory a block may use on an H100
+
+
+class HeadsMajorPlan(NamedTuple):
+    """What `flash_fwd_t_sm90.cu` is launched with for one call. K and V
+    land in `slots` slots of `src_boxes` boxes (128-byte rows of `box_cols`
+    columns x block_k keys) and are converted into bf16 tiles of `boxes`
+    64-column boxes; Q is read from global memory by the consumers."""
+
+    k: TmaMap
+    v: TmaMap
+    wide: bool  # K and V through maps over a token's H d columns
+    d: int
+    d_p: int  # the instantiation's width: d rounded up to 32
+    boxes: int  # bf16 64-column boxes of a converted tile
+    box_cols: int  # columns of a landed box row: 128 bytes of the I/O type
+    src_boxes: int
+    block_q: int  # 64 query rows per consumer warpgroup: 2, or 3 up to d 64 (`_consumers`)
+    block_k: int
+    slots: int
+    smem: int
+    grid: Tuple[int, int, int]  # (query blocks, H, B)
+
+
+def _consumers(d_p: int, lq: int, heads: int, sms: int) -> int:
+    """Consumer warpgroups (64 query rows each) of a K3 or K6 CTA over
+    `heads` (batch, head) pairs: 2 or, up to d 64, 3. Two give more CTAs of
+    fewer rows, which is faster while their grid takes no more waves of one
+    CTA an SM than three's (on an H100, PERF.md §6: L 304 and 1056 take
+    2, L 4096 3)."""
+    if d_p > 64:
+        return 2
+
+    def waves(rows):
+        return -(-(-(-lq // rows) * heads) // sms)
+
+    return 2 if waves(128) <= waves(192) else 3
+
+
+def _t_tiles(d_p: int, elem: int, consumers: int) -> Tuple[int, int, int, int, int, int]:
+    """(block_q, block_k, boxes, src_boxes, slots, shared memory) of K3's
+    instantiation at width d_p, I/O element size `elem` and `consumers`
+    warpgroups (csrc's Tiles<T, DP, NC>)."""
+    block_q, block_k = 64 * consumers, 128 if d_p <= 64 else 64
+    boxes = -(-d_p // 64)
+    tile = boxes * block_k * 128
+    q_bytes = boxes * block_q * 128
+    src_boxes = -(-d_p // (128 // elem))
+    slot = src_boxes * block_k * 128
+    fixed = q_bytes + 4 * tile + 2 * 4 * block_k + 1024 + 256
+    slots = min(4, (SMEM_LIMIT - fixed) // slot)
+    smem = q_bytes + 4 * tile + 2 * 4 * block_k + slots * slot + 8 * (2 * slots + 8) + 1024
+    return block_q, block_k, boxes, src_boxes, slots, smem
+
+
+def _src_map(name: str, shape, stride, elem: int, wide: bool, rows: int) -> TmaMap:
+    """The map of a (B, L, H, d) operand of `elem`-byte elements with these
+    element strides: boxes of 128-byte rows x `rows` keys."""
+    b, l, h, d = shape
+    if stride[3] != 1:
+        raise ValueError(f"K3 kernel: {name}'s head dim is not contiguous ({stride})")
+    strides = []
+    for axis, n in ((1, l), (2, 1 if wide else h), (0, b)):
+        s = elem * stride[axis]
+        if n == 1 and (s <= 0 or s % 16):
+            s = 16  # an axis of extent 1 is never stepped
+        if s <= 0 or s % 16 or s >= _TMA_MAX_STRIDE:
+            raise ValueError(f"K3 kernel: {name} strides {stride} unsupported "
+                             "(TMA takes positive multiples of 16 bytes below 2^40)")
+        strides.append(s)
+    if max(b, l, h * d) >= _TMA_MAX_DIM:
+        raise ValueError(f"K3 kernel: {name} shape {shape} too large for TMA")
+    dims = (h * d, l, 1, b) if wide else (d, l, h, b)
+    return TmaMap(dims, tuple(strides), (128 // elem, rows, 1, 1))
+
+
 @functools.lru_cache(maxsize=1024)
-def _heads_major_args(q_shape, q_stride, k_shape, k_stride, v_shape, v_stride, dtype):
-    """`flash_fwd.cu`'s (K3) integer arguments for heads-major (B, H, L,
-    D) q, k, v with these element strides and a fresh contiguous output:
-    (B, H, Lq, Lk, D, then the (batch, token, head) strides of q, k, v and
-    the output). Checks what the shapes and strides alone decide (a pure
-    function: the audio path repeats its shapes every layer)."""
+def _heads_major_args(q_shape, q_stride, k_shape, k_stride, v_shape, v_stride, dtype,
+                      bias_sb: int = 0, sms: int = H100_SMS):
+    """K3's plan and launch array for heads-major (B, H, L, d) q, k, v with
+    these element strides, a fresh contiguous output and a per-key bias of
+    batch stride `bias_sb`: (HeadsMajorPlan, the kernel's `args`, every
+    integer of a launch, read during the call, so one array serves every
+    call of this shape). Checks what the shapes and strides alone decide (a
+    pure function: the audio path repeats its shapes every layer)."""
     b, h, lq, d = q_shape
     lk = k_shape[2]
     if k_shape != (b, h, lk, d) or v_shape != k_shape:
         raise ValueError(f"flash attention: q {q_shape}, k {k_shape}, v {v_shape} do not match")
-    if d % 8 or d > 160:
+    if d % 8 or not 8 <= d <= T_MAX_D:
         raise ValueError(f"K3 kernel: head dim {d} unsupported (multiples of 8 up to 160)")
-    per16 = 16 // dtype.itemsize
-    for name, shape, stride in (("q", q_shape, q_stride), ("k", k_shape, k_stride),
-                                ("v", v_shape, v_stride)):
-        steps = [st for st, n in zip(stride[:-1], shape[:-1]) if n > 1]
-        if stride[-1] != 1 or any(st % per16 for st in steps):
-            raise ValueError(f"flash attention: {name} strides {stride} unsupported")
-    o_strides = (h * lq * d, d, lq * d)
-    return (b, h, lq, lk, d, *(t[i] for t in (q_stride, k_stride, v_stride) for i in (0, 2, 1)),
-            *o_strides)
+    if lq < 1 or lk < 1:
+        raise ValueError(f"K3 kernel: empty sequence (Lq {lq}, Lk {lk})")
+    if dtype not in _DTYPES:
+        raise TypeError(f"K3 kernel takes bf16 or fp32, not {dtype}")
+    elem = dtype.itemsize
+    per16 = 16 // elem
+    steps = [st for st, n in zip(q_stride[:-1], q_shape[:-1]) if n > 1]
+    if q_stride[-1] != 1 or any(st % per16 for st in steps):
+        raise ValueError(f"flash attention: q strides {q_stride} unsupported")
+
+    def view(shape, stride):  # (B, H, L, d) -> the (B, L, H, d) view
+        return (shape[0], shape[2], shape[1], shape[3]), (stride[0], stride[2], stride[1],
+                                                          stride[3])
+
+    d_p = -(-d // 32) * 32
+    block_q, block_k, boxes, src_boxes, slots, smem = _t_tiles(
+        d_p, elem, _consumers(d_p, lq, b * h, sms))
+    wide = h > 1 and k_stride[1] == v_stride[1] == d
+    plan = HeadsMajorPlan(_src_map("k", *view(k_shape, k_stride), elem, wide, block_k),
+                          _src_map("v", *view(v_shape, v_stride), elem, wide, block_k),
+                          wide, d, d_p, boxes, 128 // elem, src_boxes, block_q, block_k, slots,
+                          smem, (-(-lq // block_q), h, b))
+    vals = (b, h, lq, lk, d, d_p, _DTYPES[dtype], int(wide), q_stride[0], q_stride[2],
+            q_stride[1], h * lq * d, d, lq * d, bias_sb,
+            *(x for m in (plan.k, plan.v) for x in (*m.dims, *m.strides)),
+            block_q, block_k, slots)
+    return plan, (ctypes.c_longlong * len(vals))(*vals)
+
+
+def heads_major_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias_sb: int = 0, sms: int = H100_SMS) -> HeadsMajorPlan:
+    """The tensor maps, tiles, ring and grid of K3's Hopper kernel for
+    heads-major (B, H, L, d) q, k, v of one dtype (bf16 or fp32; any strides
+    of 16-byte steps, d contiguous). Raises on what the kernel does not
+    take: d not a multiple of 8 in 8..160, strides or addresses TMA cannot
+    read, mismatched shapes. K and V take maps over a token's H d columns
+    when its heads are adjacent (as in the wav2vec2 view), so every box row
+    lies inside the map; the kernel's converters write zeros past d."""
+    _same_dtype(q, k, v)
+    return _heads_major_args(tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
+                             tuple(v.shape), v.stride(), q.dtype, bias_sb, sms)[0]
+
+
+def _same_dtype(q, k, v) -> None:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention kernel takes q, k, v of one type, not {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+
+
+def _key_rows(bias: Optional[torch.Tensor], b: int, lk: int):
+    """A per-key bias as the K3 and K6 kernels read it: (fp32 rows of Lk,
+    their batch stride), the given tensor itself where it is already an fp32
+    (B or 1, Lk) tensor with contiguous keys, else a (B, Lk) copy."""
+    if bias is None:
+        return None, 0
+    if (bias.dtype == torch.float32 and bias.dim() == 2 and bias.shape[1] == lk
+            and bias.shape[0] in (1, b) and bias.stride(1) == 1):
+        return bias, 0 if bias.shape[0] == 1 else bias.stride(0)
+    if bias.dim() > 2:
+        bias = bias.reshape(bias.shape[0], -1)
+    return _key_bias(bias, b, lk), lk
+
+
+def flash_forward_t(q, k, v, bias=None, scale=None) -> torch.Tensor:
+    """K3 on CUDA tensors, heads-major (B, H, L, d), d a multiple of 8 up to
+    160: `flash_fwd_t_sm90.cu`, which reads q, k, v in their own type (fp32
+    rounded to bf16 inside) and writes the output in it."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    _forward_only("flash_attention", q, k, v)
+    _check_devices(q, k, v)
+    rows, bias_sb = _key_rows(bias, b, lk)
+    if rows is not None and rows.device != q.device:
+        raise ValueError("flash attention: bias on another device than q")
+    plan, args = _heads_major_args(tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
+                                   tuple(v.shape), v.stride(), q.dtype, bias_sb,
+                                   _sms(q.device))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash attention: {name} is not 16-byte aligned")
+    out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    _build.call("flash_fwd_t", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if rows is None else rows.data_ptr(), out.data_ptr(), args,
+                float(scale) * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+    LAUNCHES["flash_fwd_t"] += 1
+    return out
 
 
 # K4's Hopper kernel, csrc/flash_fwd_d512_sm90.cu: its tile configuration,
@@ -530,7 +700,6 @@ BWD_DKV_KEYS = 64 * BWD_CONSUMERS  # keys per dK/dV CTA
 BWD_DKV_STAGES = 4  # the Q/dO ring of the dK/dV pass (even: see the kernel)
 BWD_DQ_ROWS = 64 * BWD_CONSUMERS  # queries per dQ tile
 BWD_STAT_ROWS = 64  # LSE and Delta are padded to a multiple of this
-H100_SMS = 132
 
 
 class DkvPlan(NamedTuple):
@@ -853,25 +1022,7 @@ def flash_attention(
         )
     if d % 128 == 0:
         return flash_forward_d512(q, k, v, bias, scale)
-    _forward_only("flash_attention", q, k, v)
-    _check_devices(q, k, v)
-    ints = _heads_major_args(tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
-                             tuple(v.shape), v.stride(), q.dtype)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash attention: {name} is not 16-byte aligned")
-    out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
-    kb = _key_bias(bias, b, lk)
-    if kb is not None and kb.device != q.device:
-        raise ValueError("flash attention: bias on another device than q")
-    _build.call(
-        "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if kb is None else kb.data_ptr(), out.data_ptr(), *ints,
-        0 if kb is None else kb.stride(0), float(scale) * _LOG2E, _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    LAUNCHES["flash_fwd_t"] += 1
-    return out
+    return flash_forward_t(q, k, v, bias, scale)
 
 
 def quantize_int8(q: torch.Tensor, k: torch.Tensor, scale: float):
@@ -913,6 +1064,148 @@ def int8_reference(q, k, v, bias=None, scale=None):
     return out.to(v.dtype)
 
 
+# K6's Hopper kernels, csrc/flash_int8_sm90.cu: the prelude's cluster and
+# the attention kernel's tiles, mirrored here to lay out the prelude's
+# buffers, the TMA boxes and the grid (the kernel checks block_q, block_k
+# and stages against its instantiation at every launch). Widths are
+# instantiated at d rounded up to 32.
+INT8_PRELUDE_CLUSTER = 8  # CTAs that split one (b, h)'s keys and share its K mean
+INT8_STAGES = 3
+_INT8_ALIGN = 1024  # each buffer of the prelude's workspace starts on this
+
+
+class Int8Plan(NamedTuple):
+    """What `flash_int8_sm90.cu`'s two kernels are launched with for one
+    call. The prelude writes, into one workspace at these byte offsets:
+    q8 (B H, Lq, d_p) and k8 (B H, Lk, d_p) int8 (zeros past d), qs (B H,
+    Lq) fp32, meta (B H, lk_pad, 2) fp32 (ks, bias log2 e; (0, -inf) past
+    Lk) and v16 (B H, Lk, d_vp) bf16 (zeros past d). The attention kernel
+    reads q8, k8 and v16 by one TMA box a tile."""
+
+    q8: TmaMap  # (32 bytes, Lq, d_p / 32 column blocks, B H): 32-byte swizzle
+    k8: TmaMap
+    v16: TmaMap  # (64 columns, Lk, d_vp / 64, B H): 128-byte swizzle
+    d: int
+    d_p: int  # q8/k8 rows: d rounded up to 32 (int8 wgmma's k-depth)
+    d_vp: int  # v16 rows: d_p rounded up to 64 (whole 128-byte boxes)
+    lk_pad: int  # meta's keys: Lk rounded up to block_k
+    block_q: int  # 64 query rows per consumer warpgroup: 2, or 3 up to d 64 (`_consumers`)
+    block_k: int
+    stages: int
+    grid: Tuple[int, int, int]  # (query blocks, H, B)
+    prelude_grid: Tuple[int, int, int]  # (the cluster, B H, {K, Q, V})
+    offsets: Tuple[int, int, int, int, int]  # q8, k8, qs, meta, v16 in the workspace
+    workspace: int  # bytes
+
+
+@functools.lru_cache(maxsize=1024)
+def _int8_args(q_shape, q_stride, k_shape, k_stride, v_shape, v_stride, dtype,
+               bias_sb: int = 0, sms: int = H100_SMS):
+    """K6's plan and launch array (csrc/flash_int8_sm90.cu's enum Arg) for
+    heads-major q, k, v with these element strides and a per-key bias of
+    batch stride `bias_sb` (a pure function: the audio path repeats its
+    shapes every layer)."""
+    b, h, lq, d = q_shape
+    lk = k_shape[2]
+    if k_shape != (b, h, lk, d) or v_shape != k_shape:
+        raise ValueError(f"int8 flash attention: q {q_shape}, k {k_shape}, v {v_shape} "
+                         "do not match")
+    if d % 8 or not 8 <= d <= T_MAX_D:
+        raise ValueError(f"K6 kernel: head dim {d} unsupported (multiples of 8 up to 160)")
+    if lq < 1 or lk < 1:
+        raise ValueError(f"K6 kernel: empty sequence (Lq {lq}, Lk {lk})")
+    if dtype not in _DTYPES:
+        raise TypeError(f"K6 kernel takes bf16 or fp32, not {dtype}")
+    per16 = 16 // dtype.itemsize
+    for name, shape, stride in (("q", q_shape, q_stride), ("k", k_shape, k_stride),
+                                ("v", v_shape, v_stride)):
+        steps = [st for st, n in zip(stride[:-1], shape[:-1]) if n > 1]
+        if stride[-1] != 1 or any(st % per16 for st in steps):
+            raise ValueError(f"int8 flash attention: {name} strides {stride} unsupported")
+    if max(lq, lk) * T_MAX_D * b * h >= 1 << 31:
+        raise ValueError(f"K6 kernel: shape {q_shape}, {k_shape} too large")
+    d_p = -(-d // 32) * 32
+    d_vp = -(-d_p // 64) * 64
+    block_q, block_k = 64 * _consumers(d_p, lq, b * h, sms), 128 if d_vp <= 128 else 64
+    lk_pad = -(-lk // block_k) * block_k
+    bh = b * h
+    sizes = (bh * lq * d_p, bh * lk * d_p, 4 * bh * lq, 8 * bh * lk_pad, 2 * bh * lk * d_vp)
+    offsets, at = [], 0
+    for n in sizes:
+        offsets.append(at)
+        at += -(-n // _INT8_ALIGN) * _INT8_ALIGN
+    plan = Int8Plan(
+        TmaMap((32, lq, d_p // 32, bh), (d_p, 32, lq * d_p), (32, block_q, d_p // 32, 1)),
+        TmaMap((32, lk, d_p // 32, bh), (d_p, 32, lk * d_p), (32, block_k, d_p // 32, 1)),
+        TmaMap((64, lk, d_vp // 64, bh), (2 * d_vp, 128, 2 * lk * d_vp),
+               (64, block_k, d_vp // 64, 1)),
+        d, d_p, d_vp, lk_pad, block_q, block_k, INT8_STAGES, (-(-lq // block_q), h, b),
+        (INT8_PRELUDE_CLUSTER, bh, 3), tuple(offsets), at)
+    vals = (b, h, lq, lk, d, d_p, d_vp, lk_pad, _DTYPES[dtype],
+            q_stride[0], q_stride[2], q_stride[1], k_stride[0], k_stride[2], k_stride[1],
+            v_stride[0], v_stride[2], v_stride[1], bias_sb, block_q, block_k, INT8_STAGES)
+    return plan, (ctypes.c_longlong * len(vals))(*vals)
+
+
+def int8_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias_sb: int = 0,
+              sms: int = H100_SMS) -> Int8Plan:
+    """The prelude's buffers, the tensor maps, tiles and grids of K6's two
+    Hopper kernels for heads-major (B, H, L, d) q, k, v of one dtype (bf16
+    or fp32; any strides of 16-byte steps, d contiguous). Raises on what the
+    kernels do not take: d not a multiple of 8 in 8..160, other strides,
+    mismatched shapes."""
+    _same_dtype(q, k, v)
+    return _int8_args(tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
+                      tuple(v.shape), v.stride(), q.dtype, bias_sb, sms)[0]
+
+
+class Int8Operands(NamedTuple):
+    """The prelude's output: views of its workspace (see `Int8Plan`)."""
+
+    q8: torch.Tensor  # (B H, Lq, d_p) int8
+    k8: torch.Tensor  # (B H, Lk, d_p) int8
+    qs: torch.Tensor  # (B H, Lq) fp32, times scale * log2 e
+    meta: torch.Tensor  # (B H, lk_pad, 2) fp32
+    v16: torch.Tensor  # (B H, Lk, d_vp) bf16
+    workspace: torch.Tensor
+    args: object  # the launch array
+    plan: Int8Plan
+    dtype: torch.dtype  # the output's
+
+
+def _int8_checked(q, k, v, bias):
+    """K6's checked CUDA inputs: (plan, args, the bias rows or None)."""
+    b, h, lq, d = q.shape
+    _forward_only("flash_attention_int8", q, k, v)
+    _check_devices(q, k, v)
+    rows, bias_sb = _key_rows(bias, b, k.shape[2])
+    if rows is not None and rows.device != q.device:
+        raise ValueError("int8 flash attention: bias on another device than q")
+    plan, args = _int8_args(tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
+                            tuple(v.shape), v.stride(), q.dtype, bias_sb, _sms(q.device))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"int8 flash attention: {name} is not 16-byte aligned")
+    return plan, args, rows
+
+
+def _launch_prelude(q, k, v, rows, ws_ptr: int, plan: Int8Plan, args, scale: float) -> None:
+    o = plan.offsets
+    _build.call("int8_prelude", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if rows is None else rows.data_ptr(), ws_ptr + o[0], ws_ptr + o[1],
+                ws_ptr + o[2], ws_ptr + o[3], ws_ptr + o[4], args, float(scale) * _LOG2E,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    LAUNCHES["int8_prelude"] += 1
+
+
+def _launch_int8(ws_ptr: int, plan: Int8Plan, args, out: torch.Tensor) -> None:
+    o = plan.offsets
+    _build.call("flash_int8", ws_ptr + o[0], ws_ptr + o[1], ws_ptr + o[4], ws_ptr + o[3],
+                ws_ptr + o[2], out.data_ptr(), args,
+                torch.cuda.current_stream(out.device).cuda_stream)
+    LAUNCHES["flash_int8"] += 1
+
+
 def flash_attention_int8(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -923,19 +1216,63 @@ def flash_attention_int8(
 ) -> torch.Tensor:
     """Heads-major attention with int8 QK^T scores (K6): q (B, H, Lq, D),
     k/v (B, H, Lk, D), bias an optional per-key logits bias broadcastable
-    to (B, Lk). Returns (B, H, Lq, D) in v's dtype (bf16 or fp32): the
-    prelude (`quantize_int8`), then the kernel (`flash_int8_quantized`).
-    Forward only: on the card, an input that needs a gradient raises."""
+    to (B, Lk). Returns (B, H, Lq, D) in v's dtype (bf16 or fp32). On the
+    CPU the plain version (`int8_reference`); on the card two launches of
+    `flash_int8_sm90.cu`: the prelude kernel (`quantize_int8`'s counterpart)
+    into one workspace, then the attention kernel. q, k and v share one
+    dtype there. Forward only: on the card, an input that needs a gradient
+    raises."""
     d = q.shape[-1]
     if scale is None:
         scale = d ** -0.5
     if q.device.type == "cpu":
         return int8_reference(q, k, v, bias, scale)
-    _forward_only("flash_attention_int8", q, k, v)
-    for name, t in (("q", q), ("k", k)):
-        if not t.is_cuda or t.device != v.device:
-            raise ValueError(f"int8 flash attention: {name} on {t.device}, v on {v.device}")
-    return flash_int8_quantized(*quantize_int8(q, k, scale), v, bias=bias)
+    plan, args, rows = _int8_checked(q, k, v, bias)
+    ws = torch.empty(plan.workspace, dtype=torch.uint8, device=q.device)
+    out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
+    _launch_prelude(q, k, v, rows, ws.data_ptr(), plan, args, scale)
+    _launch_int8(ws.data_ptr(), plan, args, out)
+    return out
+
+
+def _operands(ws: torch.Tensor, plan: Int8Plan, args, dtype) -> Int8Operands:
+    """Views of the workspace's five buffers."""
+    b, h = plan.grid[2], plan.grid[1]
+    lq, lk = plan.q8.dims[1], plan.k8.dims[1]
+    o = plan.offsets
+
+    def part(i, n, dt, shape):
+        return ws[o[i]:o[i] + n * dt.itemsize].view(dt).view(shape)
+
+    bh = b * h
+    return Int8Operands(
+        part(0, bh * lq * plan.d_p, torch.int8, (bh, lq, plan.d_p)),
+        part(1, bh * lk * plan.d_p, torch.int8, (bh, lk, plan.d_p)),
+        part(2, bh * lq, torch.float32, (bh, lq)),
+        part(3, bh * plan.lk_pad * 2, torch.float32, (bh, plan.lk_pad, 2)),
+        part(4, bh * lk * plan.d_vp, torch.bfloat16, (bh, lk, plan.d_vp)),
+        ws, args, plan, dtype)
+
+
+def int8_prelude(q, k, v, *, bias=None, scale=None) -> Int8Operands:
+    """K6's prelude kernel alone on CUDA tensors: `flash_attention_int8`'s
+    first launch, its buffers returned as views (the test and the benchmark
+    read them; `int8_attention` takes them)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    plan, args, rows = _int8_checked(q, k, v, bias)
+    ws = torch.empty(plan.workspace, dtype=torch.uint8, device=q.device)
+    _launch_prelude(q, k, v, rows, ws.data_ptr(), plan, args, scale)
+    return _operands(ws, plan, args, v.dtype)
+
+
+def int8_attention(ops: Int8Operands) -> torch.Tensor:
+    """K6's attention kernel alone on the prelude's buffers."""
+    b, h = ops.plan.grid[2], ops.plan.grid[1]
+    out = torch.empty((b, h, ops.q8.shape[1], ops.plan.d), dtype=ops.dtype,
+                      device=ops.workspace.device)
+    _launch_int8(ops.workspace.data_ptr(), ops.plan, ops.args, out)
+    return out
 
 
 def flash_int8_quantized(
@@ -947,9 +1284,13 @@ def flash_int8_quantized(
     *,
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The K6 kernel on `quantize_int8`'s output: q8/k8 int8 (B, H, L, D)
-    and their fp32 (B, H, L) scales (contiguous), v (B, H, Lk, D) bf16 or
-    fp32, bias as for `flash_attention_int8`. CUDA tensors only."""
+    """The K6 attention kernel on `quantize_int8`'s output: q8/k8 int8 (B, H,
+    L, D) and their fp32 (B, H, L) scales (contiguous), v (B, H, Lk, D) bf16
+    or fp32, bias as for `flash_attention_int8`. CUDA tensors only. The
+    kernel reads the prelude kernel's layout (`Int8Plan`), so this wrapper
+    repacks the given buffers into it with torch ops: rows padded with zeros
+    to d rounded up to 32 (q8, k8) and to 64 (v16, V rounded to bf16), meta
+    (ks, bias log2 e) with (0, -inf) past Lk."""
     b, h, lq, d = q8.shape
     lk = k8.shape[2]
     _forward_only("flash_int8_quantized", qs, ks, v)
@@ -963,21 +1304,24 @@ def flash_int8_quantized(
     if v.dtype not in _DTYPES:
         raise TypeError(f"int8 flash attention kernel takes bf16 or fp32 v, not {v.dtype}")
     _check_16b("v", v)
-    if d % 8 or d > 160:
-        raise ValueError(f"int8 flash attention kernel: head dim {d} unsupported")
-    kb = _key_bias(bias, b, lk)
-    if kb is not None and kb.device != v.device:
+    rows, _ = _key_rows(bias, b, lk)
+    if rows is not None and rows.device != v.device:
         raise ValueError("int8 flash attention: bias on another device than v")
-    out = torch.empty((b, h, lq, d), dtype=v.dtype, device=v.device)
-    _build.call(
-        "flash_int8",
-        q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
-        None if kb is None else kb.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-        out.data_ptr(),
-        b, h, lq, lk, d, _DTYPES[v.dtype],
-        v.stride(0), v.stride(1), v.stride(2),
-        0 if kb is None else kb.stride(0),
-        torch.cuda.current_stream(v.device).cuda_stream,
-    )
-    LAUNCHES["flash_int8"] += 1
-    return out
+    shape = (b, h, lq, d)
+    plan, args = _int8_args(shape, (h * lq * d, lq * d, d, 1), tuple(v.shape),
+                            (h * lk * d, lk * d, d, 1), tuple(v.shape),
+                            (h * lk * d, lk * d, d, 1), v.dtype, 0, _sms(v.device))
+    ws = torch.empty(plan.workspace, dtype=torch.uint8, device=v.device)
+    ops = _operands(ws, plan, args, v.dtype)
+    pad = (0, plan.d_p - d)
+    ops.q8.copy_(torch.nn.functional.pad(q8.reshape(b * h, lq, d), pad))
+    ops.k8.copy_(torch.nn.functional.pad(k8.reshape(b * h, lk, d), pad))
+    ops.qs.copy_(qs.reshape(b * h, lq))
+    ops.v16.copy_(torch.nn.functional.pad(v.reshape(b * h, lk, d).to(torch.bfloat16),
+                                          (0, plan.d_vp - d)))
+    ops.meta[:, :, 0] = 0.0
+    ops.meta[:, :lk, 0] = ks.reshape(b * h, lk)
+    ops.meta[:, :, 1] = -math.inf
+    kb = 0.0 if rows is None else (rows.expand(b, lk) * _LOG2E).repeat_interleave(h, dim=0)
+    ops.meta[:, :lk, 1] = kb
+    return int8_attention(ops)

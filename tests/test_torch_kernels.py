@@ -16,9 +16,10 @@ typical |o| is ~sqrt(e / Lk), as small as 2e-2 at Lk 8192, and only the
 relative limit sees a dropped key tile or a slightly wrong scale there).
 On an H100 the relative errors read 1.7e-3 to 3.3e-3, and dropping the
 first 64 of 8192 keys reads 9.0e-2 (chip_smoke.py's kernel phase). K1 runs
-`csrc/flash_fwd_sm90.cu`, K2 `csrc/temporal_attn_sm90.cu`, K3 `csrc/flash_fwd.cu`,
-K4 `csrc/flash_fwd_d512_sm90.cu`, K8 `csrc/winograd.cu` and K9
-`csrc/layout_copy.cu` (Hopper kernels). K1's LSE and K5's
+`csrc/flash_fwd_sm90.cu`, K2 `csrc/temporal_attn_sm90.cu`, K3
+`csrc/flash_fwd_t_sm90.cu`, K4 `csrc/flash_fwd_d512_sm90.cu`, K6
+`csrc/flash_int8_sm90.cu` (its quantisation prelude and the attention),
+K8 `csrc/winograd.cu` and K9 `csrc/layout_copy.cu` (Hopper kernels). K1's LSE and K5's
 gradients, K8 (the Winograd conv) and K9 (the layout copy) have
 limits of their own (see their tests).
 """
@@ -723,3 +724,198 @@ def test_wide_maps_keep_a_neighbour_heads_inf_out(cuda_device, d):
     for got, w in zip(grads, want):
         assert torch.isfinite(got[:, :, cols]).all()
         assert _k5_close(got[:, :, cols], w)
+
+
+# K3 (csrc/flash_fwd_t_sm90.cu) and K6 (csrc/flash_int8_sm90.cu), the Hopper
+# redesigns of the audio path's attention.
+
+def _heads_major(gen, dev, b, n, h, d, dtype=torch.float32):
+    """The wav2vec2 view: (B, T, H, d) -> (B, H, T, d)."""
+    return torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+
+
+def _masked(dev, lk, start):
+    bias = torch.zeros(1, lk, device=dev)
+    bias[:, start:] = flash.MASK_VALUE
+    return bias
+
+
+# The K mean's summation order differs between the prelude kernel and
+# torch's reduction, so a centred K value can cross a rounding boundary of
+# round(x / ks) and move k8 by one. On an H100 that moved 0 of 811008
+# elements at L 1056 and 1 of 3145728 (3.2e-7) at L 4096; the bound leaves
+# room for other data (chip_smoke.py's prelude case prints the share it
+# sees).
+K8_OFF_BY_ONE_SHARE = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,lq,lk", [(64, 1056, 1056), (64, 1056, 1050), (64, 1024, 4096),
+                                     (40, 300, 1024), (160, 100, 1030), (8, 64, 1024)])
+def test_int8_prelude_kernel_matches_quantize_int8(cuda_device, d, lq, lk):
+    """K6's prelude kernel against `quantize_int8` on the card: q8 and qs
+    (times scale log2 e) bit for bit; k8 within one step on at most
+    K8_OFF_BY_ONE_SHARE of its elements, ks to fp32 rounding; v16 is V
+    rounded to bf16 bit for bit; zeros in every pad, (0, -inf) in meta past
+    Lk."""
+    gen = torch.Generator(device=cuda_device).manual_seed(40)
+    q, k, v = (_heads_major(gen, cuda_device, 1, n, 12, d) for n in (lq, lk, lk))
+    before = dict(flash.LAUNCHES)
+    ops = flash.int8_prelude(q, k, v)
+    assert flash.LAUNCHES["int8_prelude"] == before["int8_prelude"] + 1
+    q8, k8, qs, ks = flash.quantize_int8(q, k, d ** -0.5)
+    p = ops.plan
+    assert torch.equal(ops.q8[:, :, :d].reshape(q8.shape), q8)
+    assert torch.equal(ops.qs.reshape(qs.shape), qs)
+    off = ops.k8[:, :, :d].reshape(k8.shape).int() - k8.int()
+    assert off.abs().max().item() <= 1
+    assert (off != 0).float().mean().item() <= K8_OFF_BY_ONE_SHARE
+    torch.testing.assert_close(ops.meta[:, :lk, 0].reshape(ks.shape), ks, rtol=2e-6, atol=0)
+    assert torch.equal(ops.v16[:, :, :d].reshape(1, 12, lk, d), v.to(torch.bfloat16))
+    for pad in (ops.q8[:, :, d:], ops.k8[:, :, d:], ops.v16[:, :, d:]):
+        assert (pad == 0).all()
+    assert (ops.meta[:, :lk, 1] == 0).all()
+    assert (ops.meta[:, lk:, 0] == 0).all() and (ops.meta[:, lk:, 1] == -float("inf")).all()
+    assert ops.meta.shape[1] == p.lk_pad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 40])
+@pytest.mark.parametrize("lk", [1024, 1050, 4096])
+@pytest.mark.parametrize("mask", ["none", "bias", "half", "all"])
+def test_int8_sm90_kernel_matches_plain(cuda_device, d, lk, mask):
+    """K6 (prelude and attention kernel, two launches) against
+    `int8_reference`: a random per-key bias, half the keys at MASK_VALUE, or
+    all of them (every row gives 0)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(41)
+    lq = 1056
+    q, k, v = (_heads_major(gen, cuda_device, 1, n, 12, d) for n in (lq, lk, lk))
+    bias = None
+    if mask == "bias":
+        bias = torch.randn(1, lk, generator=gen, device=cuda_device)
+    elif mask != "none":
+        bias = _masked(cuda_device, lk, lk // 2 if mask == "half" else 0)
+    before = dict(flash.LAUNCHES)
+    got = flash.flash_attention_int8(q, k, v, bias=bias)
+    assert flash.LAUNCHES["int8_prelude"] == before["int8_prelude"] + 1
+    assert flash.LAUNCHES["flash_int8"] == before["flash_int8"] + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    if mask == "all":
+        assert (got == 0).all()
+    else:
+        assert _close(got, flash.int8_reference(q, k, v, bias))
+
+
+@pytest.mark.gpu
+def test_int8_sm90_kernel_in_bf16_and_through_quantized_buffers(cuda_device):
+    """bf16 q, k, v give a bf16 output; `flash_int8_quantized` on
+    `quantize_int8`'s buffers (repacked to the kernel's layout) gives what the
+    plain version gives."""
+    gen = torch.Generator(device=cuda_device).manual_seed(42)
+    q, k, v = (_heads_major(gen, cuda_device, 2, 1100, 4, 64, torch.bfloat16) for _ in range(3))
+    got = flash.flash_attention_int8(q, k, v)
+    assert got.dtype == torch.bfloat16
+    assert _close(got, flash.int8_reference(q.float(), k.float(), v.float()))
+    qf, kf, vf = (_heads_major(gen, cuda_device, 1, 1050, 12, 64) for _ in range(3))
+    bias = _masked(cuda_device, 1050, 700)
+    quant = flash.quantize_int8(qf, kf, 0.125)
+    assert _close(flash.flash_int8_quantized(*quant, vf, bias=bias),
+                  flash.int8_reference(qf, kf, vf, bias))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 40, 64, 160])
+@pytest.mark.parametrize("lk", [1, 4, 33, 304, 1056])
+def test_heads_major_sm90_kernel_matches_plain(cuda_device, dtype, d, lk):
+    """K3 through the wav2vec2 view at every width and key length, ragged
+    Lq, in fp32 and bf16 (output in the input's type)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(43)
+    lq = 301
+    q, k, v = (_heads_major(gen, cuda_device, 2, n, 6, d, dtype) for n in (lq, lk, lk))
+    got = flash.flash_attention(q, k, v)
+    assert got.dtype == dtype
+    assert _close(got, attention.attention_reference(q.float(), k.float(), v.float()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 40])
+@pytest.mark.parametrize("start", ["half", "all"])
+def test_heads_major_sm90_kernel_masked_keys(cuda_device, d, start):
+    """K3 with MASK_VALUE on half the keys or on all of them (every row
+    gives 0), contiguous heads-major tensors (per-head maps)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(44)
+    q, k, v = (torch.randn(1, 12, n, d, generator=gen, device=cuda_device) for n in (300, 1056,
+                                                                                     1056))
+    bias = _masked(cuda_device, 1056, 528 if start == "half" else 0)
+    got = flash.flash_attention(q, k, v, bias=bias)
+    assert torch.isfinite(got).all()
+    if start == "all":
+        assert (got == 0).all()
+    else:
+        assert _close(got, attention.attention_reference(q, k, v, bias[:, None, None, :]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K3", "K6"])
+def test_audio_kernels_keep_a_neighbour_heads_inf_out(cuda_device, kernel):
+    """inf planted in head h + 1's columns of q, k and v (the next 8 columns
+    of a token's row in the wav2vec2 view, which K3's wide boxes also read)
+    does not reach head h: its output equals the plain version on head h
+    alone; head h + 1's is non-finite, as the plain version's is."""
+    gen = torch.Generator(device=cuda_device).manual_seed(45)
+    d, h = 40, 1
+    rows = [torch.randn(1, n, 4, d, generator=gen, device=cuda_device) for n in (300, 1100, 1100)]
+    for t in rows:
+        t[:, :, h + 1, :8] = float("inf")
+    q, k, v = (t.transpose(1, 2) for t in rows)
+    if kernel == "K3":
+        got = flash.flash_attention(q, k, v)
+        want = attention.attention_reference(q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1])
+    else:
+        got = flash.flash_attention_int8(q, k, v)
+        want = flash.int8_reference(q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1],
+                                    scale=d ** -0.5)
+    assert torch.isfinite(got[:, h]).all()
+    assert _close(got[:, h:h + 1], want)
+    assert not torch.isfinite(got[:, h + 1]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K3", "K6"])
+@pytest.mark.parametrize("lq,consumers", [(1056, 2), (4096, 3)])
+def test_audio_kernels_at_both_consumer_counts(cuda_device, kernel, lq, consumers):
+    """The audio path's shapes at d 64 take two consumer warpgroups at L
+    1056 and three at L 4096 (`flash._consumers`); both instantiations
+    match the plain version, with a bias on the keys."""
+    gen = torch.Generator(device=cuda_device).manual_seed(47)
+    q, k, v = (_heads_major(gen, cuda_device, 1, lq, 12, 64) for _ in range(3))
+    bias = torch.randn(1, lq, generator=gen, device=cuda_device)
+    plan = (flash.heads_major_plan if kernel == "K3" else flash.int8_plan)(q, k, v)
+    assert plan.block_q == 64 * consumers
+    if kernel == "K3":
+        got = flash.flash_attention(q, k, v, bias=bias)
+        want = attention.attention_reference(q, k, v, bias[:, None, None, :])
+    else:
+        got = flash.flash_attention_int8(q, k, v, bias=bias)
+        want = flash.int8_reference(q, k, v, bias)
+    assert _close(got, want)
+
+
+@pytest.mark.gpu
+def test_audio_kernel_rings_repeat_over_many_launches(cuda_device):
+    """The rings' parity waits: 300 launches each of K3 (L 1056 and 4096: 9
+    and 32 key tiles through 4 slots and 2 bf16 stages a CTA) and K6 (L 1056
+    and 4096: 9 and 32 key tiles through 3 stages) give the first launch's
+    output bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(46)
+    for n in (1056, 4096):
+        q, k, v = (_heads_major(gen, cuda_device, 1, n, 12, 64) for _ in range(3))
+        first = flash.flash_attention(q, k, v)
+        assert sum(not torch.equal(flash.flash_attention(q, k, v), first)
+                   for _ in range(300)) == 0
+    for n in (1056, 4096):
+        q, k, v = (_heads_major(gen, cuda_device, 1, n, 12, 64) for _ in range(3))
+        first = flash.flash_attention_int8(q, k, v)
+        assert sum(not torch.equal(flash.flash_attention_int8(q, k, v), first)
+                   for _ in range(300)) == 0
