@@ -53,7 +53,19 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    embeddings (5 clips of 16 frames, 2 motion frames), counting each
    kernel's launches; then the port on the card is held against the same
    weights and inputs run on the CPU in fp32 at a small size;
-5. training: the same weights, with per-block gradient checkpointing, take
+5. the profiles, on the same models and windows: fast (UniPC, 10 evals)
+   and turbo (UniPC, 8 evals) over the 5 clips (seconds a clip, frames/s,
+   seconds a step, peak memory, launches a clip: K2's must be 10 and 8
+   times a DDIM step's of phase 4, K4's 2); one clip each of DPM-Solver++
+   on the log-SNR grid, DDIM with the uniform step cache and UniPC with the
+   dynamic step cache, the CFG cache and its tail, whose recorded steps
+   must follow `diffusion/cache.py`'s plans (a cond-only step launching
+   fewer K1 calls than a full one); the fast profile with an `on_clip`
+   hook, whose frames must be the returned video bit for bit, timed beside
+   a run without it; then the fast profile and a static CFG-cache plan on
+   the card against the CPU in fp32 at phase 4's small size, with planted
+   faults (another sampler, another CFG weight) that the check must see;
+6. training: the same weights, with per-block gradient checkpointing, take
    stage-2 train steps (`make_train_step`, AdamW) at 512^2, batch 1, 14 + 2
    motion frames, bf16, on a synthetic batch from a seed: one warm-up
    step, then 3 timed ones, counting each kernel's launches per step (K1
@@ -61,7 +73,7 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    trainable gradient on the card are held against the same weights on
    the CPU in fp32 at 64x64, with a planted backward fault that the check
    must see;
-6. the trainer: `train_stage2_process` on configs/train/stage2.yaml (batch
+7. the trainer: `train_stage2_process` on configs/train/stage2.yaml (batch
    cut to 1) with a synthetic 512^2 clip in `data/datasets.py`'s .npz
    format: 2 steps that write checkpoint-2, metrics.jsonl and final_net/,
    then a resume from checkpoint-2 for a third step.
@@ -86,7 +98,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hallo_tpu_torch.config import SchedulerConfig
 from hallo_tpu_torch.data.audio_processor import AudioProcessor, load_wav
+from hallo_tpu_torch.diffusion import cache, schedule
 from hallo_tpu_torch.models import wav2vec as wav2vec_module
 from hallo_tpu_torch.ops import _build, flash, layout, temporal, winograd
 from hallo_tpu_torch.ops.attention import attention_reference
@@ -170,6 +184,20 @@ AUDIO_FAULT_SCALE = 1.03
 # on an H100, so the limit is 2x the gradient's reading. The planted
 # backward fault (K5's dQ zeroed) read 0.119 there and must exceed it.
 TRAIN_RTOL = 5e-2
+
+# The fast profile and a static CFG-cache plan (UniPC at 12 steps, stride 2,
+# tail 2) on the card (bf16, kernels) against the same weights on the CPU
+# (fp32, plain versions) at phase_reference's small size, one clip from the
+# same noise: relative L2 error of the final latents (what the sampler
+# hands the VAE decoder). Every denoiser call carries the bf16 rounding that
+# SLICE_RTOL bounds, and the sampler mixes each step's error into the next;
+# PROFILE_RTOL is that limit. The dynamic step cache is not held against the
+# CPU: a decision near its threshold may rightly go either way between bf16
+# and fp32 (the CPU tests hold it against the JAX package). Measured on an
+# H100: 1.0e-2 (fast) and 7.3e-3 (the CFG-cache plan). Two planted faults,
+# the CPU run with DDIM's update in place of UniPC's and with a CFG weight of
+# 3.0 in place of 3.5, must exceed the limit.
+PROFILE_RTOL = 5e-2
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense, at
 # the full 700 W limit): bytes over the memory rate, operations over the
@@ -1025,11 +1053,11 @@ def on_cpu_fp32(models: HalloModels, scale: str) -> HalloModels:
     return cpu
 
 
-def phase_reference(models: HalloModels, dev, scale: str = "full") -> dict:
+def phase_reference(models: HalloModels, cpu: HalloModels, dev) -> dict:
     """ReferenceNet, one cfg_split denoiser forward, VAE encode and decode at
     a small input (64x64 pixels, 4 frames, 2 motion frames), on the card and
-    on the CPU in fp32 with the same weights and inputs."""
-    cpu = on_cpu_fp32(models, scale)
+    on the CPU in fp32 (`cpu`, `on_cpu_fp32(models)`) with the same weights
+    and inputs."""
     gen = torch.Generator().manual_seed(1)
 
     def r(*shape):
@@ -1132,7 +1160,200 @@ def phase_slice(dev, steps: int, audio_emb: np.ndarray, audio_length: int) -> di
     for name in ("flash_fwd_packed", "temporal_attn", "flash_fwd"):
         if counts[name] <= 0:
             raise RuntimeError(f"kernel {name} was not launched by the slice")
-    return dict(models=models, counts=counts, pipe=pipe, inputs=inputs)
+    return dict(models=models, counts=counts, pipe=pipe, inputs=inputs, steps=steps,
+                audio_length=audio_length, clip=clip, h=h)
+
+
+class DenoiserCalls:
+    """Each denoiser forward's `cfg_split` and the K1 launches inside it,
+    from forward hooks (the pipeline is not changed for it)."""
+
+    def __init__(self, models: HalloModels):
+        self.calls: list = []
+        den = models.denoising_net
+        self.hooks = (den.register_forward_pre_hook(self._pre, with_kwargs=True),
+                      den.register_forward_hook(self._post, with_kwargs=True))
+
+    def _pre(self, module, args, kwargs):
+        self.calls.append([bool(kwargs.get("cfg_split")), flash.LAUNCHES["flash_fwd_packed"]])
+
+    def _post(self, module, args, kwargs, out):
+        self.calls[-1][1] = flash.LAUNCHES["flash_fwd_packed"] - self.calls[-1][1]
+
+    def remove(self) -> None:
+        for h in self.hooks:
+            h.remove()
+
+
+def final_latents(pipe: FaceAnimatePipeline, **call) -> torch.Tensor:
+    """One clip through `pipe`; the latents its VAE decoder received."""
+    vae, seen = pipe.models.vae, []
+    decode = vae.decode
+
+    def recording(z):
+        seen.append(z.float().cpu())
+        return decode(z)
+
+    vae.decode = recording
+    try:
+        pipe(**call)
+    finally:
+        del vae.decode
+    return seen[0]
+
+
+def phase_profiles(models: HalloModels, cpu: HalloModels, slice_: dict) -> dict:
+    """The fast and turbo profiles (UniPC at 10 and 8 evals) over 1.wav's
+    clips at 512^2; one clip each of DPM-Solver++ on the log-SNR grid, DDIM
+    with the uniform step cache and UniPC with the dynamic step cache and
+    the CFG cache; the streaming hook; then the fast profile and a static
+    CFG-cache plan on the card against the CPU in fp32 at a small size."""
+    inputs, audio_length = slice_["inputs"], slice_["audio_length"]
+    clip, h = slice_["clip"], slice_["h"]
+    clips = inputs["audio_windows"].shape[0] // clip
+    k2_per_step = slice_["counts"]["temporal_attn"] / (clips * slice_["steps"])
+    log(f"profiles: phase 4 launched K2 {k2_per_step:g} times a DDIM step")
+
+    def pipeline(m, steps, **kw):
+        return FaceAnimatePipeline(m, num_inference_steps=steps, clip_length=clip,
+                                   n_motion_frames=2, **kw)
+
+    out = {}
+    for name, steps in (("fast", 10), ("turbo", 8)):
+        pipe = pipeline(models, steps, sampler="unipc")
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        timings: dict = {}
+        t0 = time.perf_counter()
+        video = pipe(**inputs, seed=0, audio_length=audio_length, timings=timings)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = {k: v / clips for k, v in launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        step_s = timings["denoise_step"]
+        per_clip = [sum(timings[k][c] for k in ("vae_encode", "conditioning", "vae_decode"))
+                    + sum(step_s[c * steps:(c + 1) * steps]) for c in range(clips)]
+        warm = float(np.mean(per_clip[1:]))
+        log(f"profile {name} (UniPC, {steps} evals): {clips} clips at {h}x{h}, "
+            f"{total:.3f} s; seconds a clip: first {per_clip[0]:.4f}, warm "
+            f"{[round(x, 4) for x in per_clip[1:]]} (mean {warm:.4f}, {clip / warm:.3f} "
+            f"frames/s); a denoiser step: first {step_s[0]:.4f}, mean after the first "
+            f"clip {np.mean(step_s[steps:]):.4f}; peak {peak / 2**30:.3f} GiB; "
+            f"launches a clip {counts}")
+        if video.shape != (1, audio_length, h, h, 3) or not np.isfinite(video).all():
+            raise RuntimeError(f"profile {name}: video {video.shape}")
+        if timings["step_kind"] != ["full"] * steps * clips:
+            raise RuntimeError(f"profile {name}: steps {timings['step_kind']}")
+        if counts.get("temporal_attn", 0) != steps * k2_per_step:
+            raise RuntimeError(f"profile {name}: K2 launched {counts.get('temporal_attn', 0)} "
+                               f"times a clip, want {steps} x {k2_per_step:g}")
+        if counts.get("flash_fwd") != 2:
+            raise RuntimeError(f"profile {name}: K4 launched {counts.get('flash_fwd')} a clip")
+        out[name] = dict(seconds_per_clip=per_clip, step_seconds=step_s, peak=peak,
+                         launches_per_clip=counts)
+
+    # --- one clip each of the cache plans ---
+    one = dict(inputs, audio_windows=inputs["audio_windows"][:clip])
+    for label, steps, kw in (
+        ("dpm++2m logsnr", 10, dict(sampler="dpm++2m", timestep_schedule="logsnr")),
+        ("ddim uniform", 12, dict(sampler="ddim", step_cache="uniform")),
+        ("unipc dynamic + cfg cache", 12, dict(sampler="unipc", step_cache="dynamic",
+                                               cfg_cache_stride=2, cfg_tail=2)),
+    ):
+        pipe = pipeline(models, steps, **kw)
+        calls = DenoiserCalls(models)
+        timings = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            video = pipe(**one, seed=3, timings=timings)
+            torch.cuda.synchronize()
+        finally:
+            calls.remove()
+        seconds = time.perf_counter() - t0
+        kinds = timings["step_kind"]
+        log(f"profile {label}: {seconds:.3f} s a clip (timed), steps {kinds}, "
+            f"scores {[round(x, 5) for x in timings.get('step_cache_score', [])]}, "
+            f"K1 launches by denoiser call {[c[1] for c in calls.calls]}")
+        if not np.isfinite(video).all():
+            raise RuntimeError(f"profile {label}: non-finite video")
+        if kw.get("timestep_schedule") == "logsnr":
+            want_ts = schedule.logsnr_timesteps(SchedulerConfig(), steps)
+            if not np.array_equal(pipe.sampler.timesteps, want_ts):
+                raise RuntimeError(f"profile {label}: grid {pipe.sampler.timesteps}")
+            want = ["full"] * steps
+        elif kw.get("step_cache") == "uniform":
+            want = ["reuse" if s else "full" for s in cache.make_skip_mask(steps)]
+        else:
+            plan, _ = cache.make_cfg_plan(steps, 2, pipe.guidance_scale, tail=2)
+            allow = cache.make_allow_mask(steps)
+            want = ["full" if p else "cond" for p in plan]
+            for i, kind in enumerate(kinds):
+                if kind == "reuse" and allow[i]:
+                    want[i] = "reuse"
+        if kinds != want:
+            raise RuntimeError(f"profile {label}: steps {kinds}, want {want}")
+        ran = [k for k in kinds if k != "reuse"]
+        if [c[0] for c in calls.calls] != [k == "full" for k in ran]:
+            raise RuntimeError(f"profile {label}: denoiser calls {calls.calls} for {ran}")
+        full = [n for split, n in calls.calls if split]
+        cond = [n for split, n in calls.calls if not split]
+        if cond and not max(cond) < min(full):
+            raise RuntimeError(f"profile {label}: a cond-only step launched K1 {max(cond)} "
+                               f"times, a full one {min(full)}")
+        out[label] = dict(seconds=seconds, kinds=kinds, k1_full=full, k1_cond=cond)
+
+    # --- the streaming hook: its frames are the returned video ---
+    pipe = pipeline(models, 10, sampler="unipc")
+    t0 = time.perf_counter()
+    plain = pipe(**inputs, seed=4, audio_length=audio_length)
+    torch.cuda.synchronize()
+    no_hook = time.perf_counter() - t0
+    frames: list = []
+    t0 = time.perf_counter()
+    video = pipe(**inputs, seed=4, audio_length=audio_length, on_clip=frames.append)
+    torch.cuda.synchronize()
+    with_hook = time.perf_counter() - t0
+    log(f"profile fast, streaming: {no_hook:.3f} s without the hook, {with_hook:.3f} s with "
+        f"it ({clips} clips, no timings)")
+    hooked = np.concatenate(frames, axis=1).astype(np.float32) / 255.0
+    if not (np.array_equal(hooked, video) and np.array_equal(video, plain)):
+        raise RuntimeError("profile fast: the hook's frames differ from the returned video")
+    out["streaming"] = dict(without_hook=no_hook, with_hook=with_hook)
+
+    # --- the card against the CPU in fp32, phase_reference's size ---
+    small = dict(dummy_clip_inputs(models, 64, 64, 4, batch=1, seed=5))
+    noise = [np.random.default_rng(6).normal(size=(1, 4, 8, 8, 4)).astype(np.float32)]
+
+    def latents_of(m, steps, **kw):
+        return final_latents(FaceAnimatePipeline(m, num_inference_steps=steps, clip_length=4,
+                                                 n_motion_frames=2, **kw),
+                             **small, latents=noise)
+
+    fast_card = None
+    for label, steps, kw in (("fast", 10, dict(sampler="unipc")),
+                             ("unipc cfg cache", 12, dict(sampler="unipc", cfg_cache_stride=2,
+                                                          cfg_tail=2))):
+        got = latents_of(models, steps, **kw)
+        err = rel_err(got, latents_of(cpu, steps, **kw))
+        log(f"profile {label} at 64x64 vs CPU fp32: final latents rel_err {err:.3e} "
+            f"(rtol {PROFILE_RTOL})")
+        if not err <= PROFILE_RTOL:
+            raise RuntimeError(f"profile {label}: card disagrees with the CPU fp32 run ({err})")
+        out[f"{label} vs cpu"] = err
+        fast_card = got if fast_card is None else fast_card
+    # planted faults on the CPU side: DDIM's update in place of UniPC's, and
+    # a CFG weight of 3.0 in place of 3.5; each must read outside the limit
+    # (UniPC's corrector alone moves these latents about as much as bf16
+    # does: the CPU tests hold it against the JAX package at 1e-6)
+    for fault, kw in (("DDIM in place of UniPC", dict(sampler="ddim")),
+                      ("guidance 3.0", dict(sampler="unipc", guidance_scale=3.0))):
+        e = rel_err(fast_card, latents_of(cpu, 10, **kw))
+        log(f"profile fast, planted fault ({fault} on the CPU): rel_err {e:.3e}")
+        if not e > PROFILE_RTOL:
+            raise RuntimeError(f"profile fast: the planted fault ({fault}) reads {e}, inside "
+                               f"{PROFILE_RTOL}: the check is too weak")
+    return out
 
 
 def loss_and_grads(models: HalloModels, batch: dict) -> tuple:
@@ -1377,8 +1598,12 @@ def main() -> None:
     torch.cuda.synchronize()
     if args.profile_out:
         phase_profile(slice_["pipe"], slice_["inputs"], args.profile_out)
-    phase_reference(slice_["models"], dev)
+    cpu = on_cpu_fp32(slice_["models"], "full")
+    phase_reference(slice_["models"], cpu, dev)
     torch.cuda.synchronize()
+    phase_profiles(slice_["models"], cpu, slice_)
+    torch.cuda.synchronize()
+    del cpu
     train_profile = ""
     if args.profile_out:
         root, ext = os.path.splitext(args.profile_out)

@@ -25,9 +25,14 @@ class DDIMState(NamedTuple):
         return int(self.timesteps.shape[0])
 
 
-def make_state(cfg: SchedulerConfig, num_inference_steps: int) -> DDIMState:
+def make_state(cfg: SchedulerConfig, num_inference_steps: int,
+               timesteps=None) -> DDIMState:
+    """`timesteps` (descending) replaces the trailing grid, e.g. a log-SNR
+    one; the step keeps its `num_train // num_steps` stride all the same, as
+    the JAX package's does."""
     ac = schedule.alphas_cumprod(cfg).astype(np.float32)
-    ts = schedule.inference_timesteps(cfg, num_inference_steps)
+    ts = (np.asarray(timesteps) if timesteps is not None
+          else schedule.inference_timesteps(cfg, num_inference_steps))
     return DDIMState(
         timesteps=np.asarray(ts, np.int64),
         alphas_cumprod=ac,

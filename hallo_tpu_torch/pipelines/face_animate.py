@@ -4,9 +4,11 @@ hallo_tpu/pipelines/face_animate.py).
 One clip: VAE-encode the reference frame and the motion frames (posterior
 mean) -> identity tokens and one ReferenceNet pass -> face-locator and audio
 conditioning, each with a zeroed CFG-uncond half -> the CFG [uncond | cond]
-DDIM loop over the denoising UNet with `cfg_split` -> one batched VAE decode
-to uint8, whose last frames are the next clip's motion frames. `__call__`
-slides that clip program over the audio windows.
+denoise loop over the denoising UNet with `cfg_split`, advanced by DDIM,
+DPM-Solver++ (2M) or UniPC and optionally thinned by the step and CFG caches
+-> one batched VAE decode to uint8, whose last frames are the next clip's
+motion frames. `__call__` slides that clip program over the audio windows,
+dispatching clip c+1 before it fetches clip c's frames.
 
 Public layouts are the JAX package's: pixels (B, H, W, 3) in [-1, 1],
 latents (B, F, H/8, W/8, 4). Inside, tensors are NCHW.
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +31,7 @@ from hallo_tpu_torch.config import (
     UNetConfig,
     VAEConfig,
 )
+from hallo_tpu_torch.diffusion.cache import make_allow_mask, make_cfg_plan, make_skip_mask
 from hallo_tpu_torch.diffusion.sampler import make_sampler
 from hallo_tpu_torch.models.face_locator import FaceLocator
 from hallo_tpu_torch.models.projections import AudioProj, ImageProj
@@ -127,6 +130,15 @@ class _Phases:
         self.t = now
 
 
+def _half(tree, b: int):
+    """The CFG-cond half (rows b:) of a tensor, a list or a dict of lists."""
+    if isinstance(tree, dict):
+        return {k: _half(v, b) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_half(x, b) for x in tree)
+    return tree[b:]
+
+
 class FaceAnimatePipeline:
     def __init__(
         self,
@@ -136,12 +148,68 @@ class FaceAnimatePipeline:
         guidance_scale: float = 3.5,
         clip_length: int = 16,
         n_motion_frames: int = 2,
+        legacy_context_tiling: bool = True,
+        step_cache: Optional[str] = None,
+        step_cache_threshold: float = 0.10,
+        cfg_cache_stride: int = 1,
+        sampler: str = "ddim",
+        cfg_tail: int = 0,
+        cfg_cache_warmup: Optional[int] = None,
+        cfg_cache_cooldown: Optional[int] = None,
+        timestep_schedule: str = "trailing",
+        schedule_rho: float = 1.0,
     ):
+        """`legacy_context_tiling=True` tiles the identity tokens over the
+        ReferenceNet batch the way the reference does
+        (mutual_self_attention.py:341-349, misaligned with the frames: what
+        the trained checkpoint saw); False repeats them per frame.
+
+        `step_cache="uniform"` reuses the previous prediction on the steps
+        of `cache.make_skip_mask` (the sampler update still advances);
+        "dynamic" reuses it while the accumulated relative latent change
+        since the last recompute stays under `step_cache_threshold`, on the
+        steps `cache.make_allow_mask` allows (decided on the host: one
+        synchronisation each such step).
+
+        `cfg_cache_stride > 1` recomputes the CFG-uncond half only every
+        stride-th step between warm-up and cool-down and otherwise runs the
+        cond half alone against the cached uncond prediction; the last
+        `cfg_tail` steps run cond-only at guidance 1 (`cache.make_cfg_plan`).
+        Both compose with `step_cache` None or "dynamic", not "uniform".
+
+        `sampler` ("ddim", "dpm++2m", "unipc"), `timestep_schedule`
+        ("trailing" or "logsnr") and `schedule_rho`: `make_sampler`'s."""
         self.models = models
         self.guidance_scale = float(guidance_scale)
         self.clip_length = clip_length
         self.n_motion_frames = n_motion_frames
-        self.sampler = make_sampler(scheduler, "ddim", num_inference_steps)
+        self.legacy_context_tiling = legacy_context_tiling
+        if step_cache in ("", "off", "none", "exact"):
+            step_cache = None
+        if step_cache not in (None, "uniform", "dynamic"):
+            raise ValueError(
+                f"step_cache={step_cache!r}: expected None/'off', 'uniform' or 'dynamic'")
+        self.step_cache = step_cache
+        self.step_cache_threshold = float(step_cache_threshold)
+        stride, tail = int(cfg_cache_stride), int(cfg_tail)
+        if stride < 1:
+            raise ValueError(f"cfg_cache_stride={cfg_cache_stride} must be >= 1")
+        if (stride > 1 or tail > 0) and step_cache == "uniform":
+            raise ValueError(
+                "cfg_cache_stride/cfg_tail compose with step_cache None or 'dynamic', "
+                "not 'uniform'")
+        self.sampler = make_sampler(scheduler, sampler, num_inference_steps,
+                                    timestep_schedule=timestep_schedule,
+                                    schedule_rho=schedule_rho)
+        n = self.sampler.num_steps
+        # the per-step plans: reuse on skip[i]; the dynamic criterion only
+        # where allow[i]; the CFG pair where cfg_plan's mask, else cond only
+        self.skip = make_skip_mask(n) if step_cache == "uniform" else None
+        self.allow = make_allow_mask(n) if step_cache == "dynamic" else None
+        self.cfg_plan = None
+        if (stride > 1 or tail > 0) and self.guidance_scale > 1.0:
+            self.cfg_plan = make_cfg_plan(n, stride, self.guidance_scale, warmup=cfg_cache_warmup,
+                                          cooldown=cfg_cache_cooldown, tail=tail)
 
     @torch.inference_mode()
     def clip(
@@ -156,7 +224,11 @@ class FaceAnimatePipeline:
         timings: Optional[dict] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One clip. Returns (frames (B, F, H, W, 3) uint8, next clip's
-        motion frames (B, M, H, W, 3) in [-1, 1])."""
+        motion frames (B, M, H, W, 3) in [-1, 1]). With `timings`, also
+        records each step's kind ("full": the CFG pair, "cond": the cond
+        half alone, "reuse": no denoiser call) under "step_kind" and, with
+        the dynamic step cache, each allowed step's accumulated change under
+        "step_cache_score"."""
         m = self.models
         dev = m.device
         phases = _Phases(timings, dev)
@@ -172,10 +244,10 @@ class FaceAnimatePipeline:
         tokens_c = m.image_proj(face_emb)
         tokens_u = m.image_proj(torch.zeros_like(face_emb))
         context = torch.cat([tokens_u, tokens_c], dim=0)  # (2B, T, D)
-        # The identity tokens tile over the ReferenceNet batch the way the
-        # reference does (mutual_self_attention.py:341-349, misaligned with
-        # the frames): what the trained checkpoint saw.
-        ref_context = context.repeat(one_m, 1, 1)
+        if self.legacy_context_tiling:
+            ref_context = context.repeat(one_m, 1, 1)
+        else:
+            ref_context = context.repeat_interleave(one_m, 0)
         _, feats = m.reference_net(
             ref_latents, torch.zeros((), device=dev), ref_context
         )
@@ -196,20 +268,75 @@ class FaceAnimatePipeline:
         )
         phases.mark("conditioning")
 
-        # --- CFG DDIM loop (cfg_split: the uncond half runs plain
-        # self-attention and the zero-audio fast path) ---
+        den = m.denoising_net
+        g = self.guidance_scale
+
+        def run_halves(t, lat):
+            # cfg_split: the uncond half runs plain self-attention and the
+            # zero-audio fast path
+            out = den(lat.repeat(2, 1, 1, 1, 1), t, context, ref_feats, motion_feats,
+                      audio_tokens, face_cond, masks_cfg, motion_scale, None, cfg_split=True)
+            return out[:b], out[b:]
+
+        def run_step(t, lat):
+            un, co = run_halves(t, lat)
+            return (un + g * (co - un) if g > 1.0 else co).float()
+
+        if self.cfg_plan is not None:
+            un_mask, guid_w = self.cfg_plan
+            # every conditioning tensor sliced to the cond half (rows b:;
+            # the masks' rows are CFG-major over B*F); with cfg_split off and
+            # no uncond mask, every sample takes the conditional path
+            cond = (_half(context, b), _half(ref_feats, b), _half(motion_feats, b),
+                    audio_tokens[b:], face_cond[b:], _half(masks_cfg, b * f))
+
+            def run_cached_cfg(i, t, lat, u_prev):
+                """(pred, uncond to cache, kind): the CFG pair where
+                un_mask[i], else the cond half against the cached uncond; the
+                guidance weight is the plan's (1.0 in the cfg_tail steps)."""
+                if un_mask[i]:
+                    un, co = run_halves(t, lat)
+                    un, co, kind = un.float(), co.float(), "full"
+                else:
+                    co = den(lat, t, *cond, motion_scale, None, cfg_split=False).float()
+                    un, kind = u_prev, "cond"
+                return un + float(np.float32(guid_w[i])) * (co - un), un, kind
+
         lat = latents.permute(0, 1, 4, 2, 3).float()  # (B, F, 4, h, w)
         samp = self.sampler
+        carry = samp.init_carry(lat)
+        prev_out = u_prev = torch.zeros_like(lat)
+        anchor, accum = lat, torch.zeros((), device=dev)
+        thresh = float(np.float32(self.step_cache_threshold))
+        kinds, scores = [], []
         for i in range(samp.num_steps):
             t = torch.tensor(int(samp.timesteps[i]), device=dev)
-            out = m.denoising_net(
-                lat.repeat(2, 1, 1, 1, 1), t, context, ref_feats, motion_feats,
-                audio_tokens, face_cond, masks_cfg, motion_scale, None, cfg_split=True,
-            )
-            un, co = out[:b], out[b:]
-            pred = un + self.guidance_scale * (co - un) if self.guidance_scale > 1.0 else co
-            lat = samp.step(i, pred, lat)
+            if self.allow is not None and self.allow[i]:
+                # The dynamic criterion, in fp32 as in the JAX package; the
+                # host needs the decision, so this step synchronises once.
+                diff = (lat - anchor).abs().mean() / (anchor.abs().mean() + 1e-8)
+                score = (accum + diff).item()
+                scores.append(score)
+                reuse = score < thresh
+            else:
+                reuse = self.skip is not None and bool(self.skip[i])
+            if reuse:
+                out, kind = prev_out, "reuse"
+                if self.allow is not None:
+                    accum = accum + diff
+            else:
+                if self.cfg_plan is not None:
+                    out, u_prev, kind = run_cached_cfg(i, t, lat, u_prev)
+                else:
+                    out, kind = run_step(t, lat), "full"
+                anchor, accum, prev_out = lat, torch.zeros((), device=dev), out
+            kinds.append(kind)
+            lat, carry = samp.step(i, out, lat, carry)
             phases.mark("denoise_step")
+        if timings is not None:
+            timings.setdefault("step_kind", []).extend(kinds)
+            if self.allow is not None:
+                timings.setdefault("step_cache_score", []).extend(scores)
 
         # --- batched VAE decode -> uint8; motion carry from the uint8 ---
         pix = m.vae.decode(lat.flatten(0, 1))  # (B*F, 3, H, W)
@@ -231,13 +358,24 @@ class FaceAnimatePipeline:
         motion_scale=(1.0, 1.0, 1.0),
         seed: int = 42,
         audio_length: Optional[int] = None,
+        on_clip: Optional[Callable[[np.ndarray], None]] = None,
+        return_video: bool = True,
         latents: Optional[Sequence[np.ndarray]] = None,
         timings: Optional[dict] = None,
-    ) -> np.ndarray:
+    ) -> Optional[np.ndarray]:
         """Generate the video clip by clip with the motion-frame carry.
         Each clip's initial noise (B, F, H/8, W/8, 4) is `latents[c]` when
         given, else drawn from a torch.Generator seeded with `seed`.
-        Returns (B, T_out, H, W, 3) float32 in [0, 1]."""
+        Returns (B, T_out, H, W, 3) float32 in [0, 1].
+
+        Clip c+1 depends on clip c only through the motion frames on the
+        device, so it is dispatched before clip c's frames are fetched: on
+        the card, clip c's uint8 frames go to pinned host memory on a side
+        stream that waits for clip c's decode alone, while clip c+1 runs
+        (`timings`, which synchronises at every mark, serialises this).
+        `on_clip(frames_uint8)` receives each clip's (B, f', H, W, 3) frames,
+        trimmed to `audio_length`. With `return_video=False` no frames are
+        kept and None is returned."""
         dev = self.models.device
         b, h, w, _ = ref_image.shape
         f, m_frames = self.clip_length, self.n_motion_frames
@@ -257,8 +395,44 @@ class FaceAnimatePipeline:
         gen = torch.Generator(device=dev).manual_seed(seed)
         # First clip: the motion frames are copies of the reference image.
         motion = ref[:, None].expand(-1, m_frames, -1, -1, -1)
+        copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
-        outputs = []
+        def start_fetch(frames: torch.Tensor):
+            """Begin the copy of one clip's frames to the host; returns a
+            function that waits for it and gives the numpy array."""
+            if copy_stream is None:
+                return frames.numpy
+            decoded = torch.cuda.Event()
+            decoded.record()
+            host = torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True)
+            with torch.cuda.stream(copy_stream):
+                copy_stream.wait_event(decoded)
+                host.copy_(frames, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record()
+            frames.record_stream(copy_stream)
+
+            def wait():
+                copied.synchronize()
+                return host.numpy()
+
+            return wait
+
+        limit = audio_length if audio_length is not None else t_total
+        outputs, emitted, pending = [], 0, None
+
+        def emit(fetch) -> None:
+            nonlocal emitted
+            take = min(f, limit - emitted)
+            if take <= 0:
+                return
+            arr = fetch()[:, :take]
+            emitted += take
+            if on_clip is not None:
+                on_clip(arr)
+            if return_video:
+                outputs.append(arr.astype(np.float32) / 255.0)
+
         for c in range(num_clips):
             if latents is not None:
                 noise = put(latents[c])
@@ -270,7 +444,8 @@ class FaceAnimatePipeline:
                 ref_pixels, noise, clip_audio, face_emb_t, face_region_t, masks_t,
                 motion_scale_t, timings,
             )
-            outputs.append(frames.cpu().numpy())
-        video = np.concatenate(outputs, axis=1)
-        limit = audio_length if audio_length is not None else t_total
-        return video[:, :limit].astype(np.float32) / 255.0
+            if pending is not None:
+                emit(pending)
+            pending = start_fetch(frames)
+        emit(pending)
+        return np.concatenate(outputs, axis=1) if return_video else None
