@@ -41,7 +41,12 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    plan, device time by CUDA-graph replay and host cost per call, K6's
    prelude and attention apart, and the prelude held against
    `quantize_int8`. Nothing on a main path calls K8 or K9, in either
-   package: their launches are this phase's;
+   package: their launches are this phase's. Then the card checks of
+   tests/test_torch_kernels.py, in a pytest process of their own: 300
+   launches each of K1 (Lk 32, 4 and level 0, with and without its LSE), K4
+   and K8 give the first launch's bits, and the DDIM, DPM-Solver++ and
+   UniPC steps with their carries on the card match the CPU at 1e-6, with a
+   planted corrector fault (UniPC's `c_dt` zeroed) that must fail;
 3. the driving audio: the full-width wav2vec2-base (random weights from a
    seed, fp32) through `AudioProcessor.preprocess` on
    `examples/driving_audios/1.wav` (3 s), on it tiled 4x (12 s) and, under
@@ -76,7 +81,26 @@ Phases, each synchronised so that a device fault surfaces where it happened:
 7. the trainer: `train_stage2_process` on configs/train/stage2.yaml (batch
    cut to 1) with a synthetic 512^2 clip in `data/datasets.py`'s .npz
    format: 2 steps that write checkpoint-2, metrics.jsonl and final_net/,
-   then a resume from checkpoint-2 for a third step.
+   then a resume from checkpoint-2 for a third step;
+8. onnx: the port's ONNX executor (`convert/onnx_torch.py`) on the card
+   against itself on the CPU in fp32, on seeded graphs of the four models'
+   published architectures at their published depths and widths
+   (`convert/synthetic.py`): SCRFD-10G at det size 640 (its detections on
+   1.jpg equal), IResNet-100 at 112x112 (a planted fault, one conv weight
+   x1.01 on the card only, must fail), the MediaPipe face mesh at 192x192
+   and MDX-Net's TFC-TDF U-Net at Kim_Vocal_2's (3072, 256), with the
+   seconds per call in fp32 and with TF32 (which must fail the check); the
+   face analyzer with the three face files, the separator with the U-Net
+   against the CPU, and an identity MDX graph giving back 1.wav;
+9. cli: the product, `hallo_tpu_torch.inference.inference_process`, at full
+   width on 1.jpg and 1.wav (turbo, bf16, 512^2, no --allow-partial) over
+   synthetic fp16 checkpoint files in the reference's `pretrained_models/`
+   layout (the inventories' keys and shapes, about 7.8 GB, written under
+   `hallo_tpu_torch/_build/cli/` and removed afterwards) and the TFC-TDF
+   U-Net as the vocal separator: every module loads 100%, named tensors hold the last file's
+   values bit for bit, the separator runs, the mp4 holds 75 frames that
+   move, the timing JSON holds every stage, K1-K4 launch; a VAE file with
+   its keys renamed must make the CLI raise before generation.
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`;
@@ -87,26 +111,36 @@ exits non-zero without that line. Without a CUDA device it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
 import shutil
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from safetensors.torch import load_file, save_file
 
-from hallo_tpu_torch.config import SchedulerConfig
+from hallo_tpu_torch import inference
+from hallo_tpu_torch.config import SchedulerConfig, load_yaml
+from hallo_tpu_torch.convert import onnx_torch, synthetic
+from hallo_tpu_torch.convert.onnx_torch import OnnxExecutor
 from hallo_tpu_torch.data.audio_processor import AudioProcessor, load_wav
+from hallo_tpu_torch.data.face_analysis import FaceAnalyzer
+from hallo_tpu_torch.data.image_processor import load_image_rgb
+from hallo_tpu_torch.data.insight_torch import ScrfdTorch, norm_crop
+from hallo_tpu_torch.data.mdx_separator import MdxSeparator
 from hallo_tpu_torch.diffusion import cache, schedule
 from hallo_tpu_torch.models import wav2vec as wav2vec_module
 from hallo_tpu_torch.ops import _build, flash, layout, temporal, winograd
 from hallo_tpu_torch.ops.attention import attention_reference
 from hallo_tpu_torch.ops.bench_temporal import timings
 from hallo_tpu_torch.pipelines.face_animate import (
-    FaceAnimatePipeline, HalloModels, window_audio_embeddings)
+    MODULE_NAMES, FaceAnimatePipeline, HalloModels, window_audio_embeddings)
 from hallo_tpu_torch.train.bench_step import synthetic_batch
 from hallo_tpu_torch.train.bench_trainer import trainer_config
 from hallo_tpu_torch.train.stage2 import train_stage2_process
@@ -115,6 +149,7 @@ from hallo_tpu_torch.train.state import (
 from hallo_tpu_torch.train.step import (
     TrainConfig, make_loss_fn, make_train_step, step_generator)
 from hallo_tpu_torch.utils.factory import build_models, build_wav2vec, dummy_clip_inputs
+from hallo_tpu_torch.utils.video import read_frames
 
 # A kernel against its plain version computed in fp32 from the same inputs
 # (unit-normal q, k, v). The kernels round q, k, v (fp32 I/O: on their way
@@ -199,6 +234,41 @@ TRAIN_RTOL = 5e-2
 # 3.0 in place of 3.5, must exceed the limit.
 PROFILE_RTOL = 5e-2
 
+# Kernel tests of tests/test_torch_kernels.py that chip_smoke.py runs after
+# its kernel phase: the rings' 300-launch repeats of K1 (Lk 32, 4 and level
+# 0, with and without its LSE), K4 and K8, and the samplers' steps on the
+# card against the CPU with a planted corrector fault.
+CARD_CHECKS = ("repeats_bit_for_bit_over_300 or d512_and_winograd_kernels_are_bitwise_repeatable"
+               " or sampler_steps_on_the_card or sampler_card_check")
+CARD_CHECK_COUNT = 6 + 1 + 6 + 1
+
+# A tensor that AnimateDiff's file and net.pth both hold (net.pth's wins).
+CLI_MOTION_KEY = "down_blocks.0.motion_modules.0.temporal_transformer.proj_in.weight"
+
+# The ONNX executor on the card (fp32: `OnnxExecutor.run` turns TF32 off,
+# as the product runs it) against itself on the CPU in fp32 on the same
+# inputs: relative L2 error of each graph's outputs. Both sides are fp32 in
+# another order of sums, so the limit sits above the graphs' own fp32
+# rounding and below what TF32's 10-bit products give: the graphs of
+# ONNX_TF32_MUST_FAIL run with TF32 (`tf32_fault`) must exceed it, as must
+# one conv weight x1.01 on the card side only.
+ONNX_RTOL = 1e-5
+ONNX_FAULT_SCALE = 1.01
+ONNX_TF32_MUST_FAIL = ("scrfd", "arcface", "mdx")
+# The separator with the U-Net on the card against the CPU, on 1.wav: the
+# graph's error as the STFT of real audio (a wide range of magnitudes), the
+# overlap-add, the iSTFT and the resampling carry it to the waveform. The
+# same run with TF32 allowed must exceed the limit.
+SEPARATOR_RTOL = 3e-5
+# The identity MDX graph gives back 1.wav through the STFT, the graph, the
+# iSTFT and the 16 <-> 44.1 kHz resampling, whose round trip sets this
+# limit.
+SEPARATOR_ROUND_TRIP_RTOL = 1e-3
+# Detections on the card and on the CPU: the same boxes in the same order,
+# their corners and keypoints within this many pixels.
+DETECTION_ATOL = 1e-2
+
+
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense, at
 # the full 700 W limit): bytes over the memory rate, operations over the
 # tensor-core rate of their type.
@@ -213,6 +283,8 @@ CARD = dict(sms=0, sm_clock_hz=0.0)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WAV = os.path.join(REPO, "examples", "driving_audios", "1.wav")
+IMAGE = os.path.join(REPO, "examples", "reference_images", "1.jpg")
+DEFAULT_YAML = os.path.join(REPO, "configs", "inference", "default.yaml")
 
 # Rows of the kernels' table: the TPU kernel each replaces, and the path
 # whose run counts its launches.
@@ -1532,6 +1604,323 @@ def phase_trainer(dev) -> dict:
     return dict(counts=counts, seconds=seconds, resume_seconds=resume_s)
 
 
+def phase_card_checks() -> None:
+    """`CARD_CHECKS`, run by pytest in a process of its own (it loads the
+    kernels built above); fails unless all of them pass."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "tests/test_torch_kernels.py", "-m", "gpu", "-q",
+         "--noconftest", "-p", "no:cacheprovider", "-k", CARD_CHECKS],
+        cwd=REPO, capture_output=True, text=True)
+    tail = (out.stdout + out.stderr).strip().splitlines()[-8:]
+    for line in tail:
+        log(f"  {line}")
+    passed = [line for line in tail if f"{CARD_CHECK_COUNT} passed" in line]
+    if out.returncode != 0 or not passed:
+        raise RuntimeError(f"card checks (tests/test_torch_kernels.py -k '{CARD_CHECKS}'): "
+                           f"rc {out.returncode}, want {CARD_CHECK_COUNT} passed")
+    log(f"card checks: {CARD_CHECK_COUNT} passed in {time.perf_counter() - t0:.1f} s "
+        "(one pytest process)")
+
+
+def _seconds_per_call(fn, n: int) -> float:
+    fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+@contextlib.contextmanager
+def tf32_fault():
+    """The planted precision fault: TF32 on for cuDNN and cuBLAS, and the
+    ONNX executor's `fp32_only` made a no-op, while the block runs."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             onnx_torch.fp32_only)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    onnx_torch.fp32_only = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         onnx_torch.fp32_only) = saved
+
+
+def phase_onnx(dev) -> dict:
+    """The port's ONNX executor on the card against itself on the CPU in
+    fp32, on graphs of the four models' published architectures at their
+    published depths and widths with seeded weights, written with
+    `onnx_io.save_onnx` (`convert/synthetic.py`): SCRFD-10G at det size 640,
+    IResNet-100 at 112x112, the MediaPipe face mesh at 192x192 and the
+    TFC-TDF U-Net at Kim_Vocal_2's (3072, 256), on 1.jpg and a seeded
+    spectrogram; planted faults (a conv weight x1.01, TF32) must fail. Then
+    the face analyzer with the three face files and the separator with the
+    U-Net on the card, and the identity MDX graph giving back 1.wav."""
+    import cv2
+
+    root = os.path.join(_build.BUILD_DIR, "onnx")
+    models_dir = os.path.join(root, "face_analysis", "models")
+    sizes = {name: {} for name in ("scrfd", "arcface", "mesh", "mdx")}
+    paths = dict(
+        scrfd=synthetic.scrfd_graph(os.path.join(models_dir, "scrfd_10g_bnkps.onnx"),
+                                    stats=sizes["scrfd"]),
+        arcface=synthetic.arcface_graph(os.path.join(models_dir, "glintr100.onnx"),
+                                        stats=sizes["arcface"]),
+        mesh=synthetic.face_mesh_graph(os.path.join(models_dir, "face_landmark_468.onnx"),
+                                       stats=sizes["mesh"]),
+        mdx=synthetic.mdx_graph(os.path.join(root, "Kim_Vocal_2.onnx"), stats=sizes["mdx"]),
+    )
+    img = load_image_rgb(IMAGE)
+    det_card = ScrfdTorch(paths["scrfd"], device=dev)
+    det_cpu = ScrfdTorch(paths["scrfd"], device="cpu")
+    boxes, kps = det_card.detect(img)
+    want_boxes, want_kps = det_cpu.detect(img)
+    log(f"SCRFD-10G at 640 on 1.jpg: {len(boxes)} detections on the card, "
+        f"{len(want_boxes)} on the CPU")
+    if len(boxes) < 1 or boxes.shape != want_boxes.shape or not (
+            np.allclose(boxes[:, :4], want_boxes[:, :4], atol=DETECTION_ATOL, rtol=0)
+            and np.allclose(kps, want_kps, atol=DETECTION_ATOL, rtol=0)):
+        raise RuntimeError("detections on the card differ from the CPU's")
+
+    # graph inputs: the detector's letterboxed blob, the aligned crop of the
+    # top detection, the mesh's 192x192 crop, one spectrogram segment
+    scale = min(640 / img.shape[1], 640 / img.shape[0])
+    canvas = np.zeros((640, 640, 3), np.uint8)
+    nw, nh = int(round(img.shape[1] * scale)), int(round(img.shape[0] * scale))
+    canvas[:nh, :nw] = cv2.resize(img, (nw, nh))
+    crop = norm_crop(img, want_kps[0])
+    rng = np.random.default_rng(0)
+    feeds = dict(
+        scrfd=((canvas.astype(np.float32) - 127.5) / 128.0).transpose(2, 0, 1)[None],
+        arcface=((crop.astype(np.float32) - 127.5) / 127.5).transpose(2, 0, 1)[None],
+        mesh=(cv2.resize(img, (192, 192)).astype(np.float32) / 255.0).transpose(2, 0, 1)[None],
+        mdx=rng.normal(size=(1, 4) + synthetic.KIM_VOCAL_2_DIMS).astype(np.float32),
+    )
+    out = dict(seconds={}, sizes=sizes)
+    for name, path in paths.items():
+        card, cpu = OnnxExecutor(path, device=dev), OnnxExecutor(path, device="cpu")
+        feed = {card.input_names[0]: feeds[name]}
+        got, want = card(feed), cpu(feed)
+
+        def err_of(outs):
+            return max(rel_err(outs[k].cpu().numpy(), want[k].numpy()) for k in want)
+
+        err = err_of(got)
+        card_s = _seconds_per_call(lambda: card(feed), 10)
+        t0 = time.perf_counter()
+        cpu(feed)
+        cpu_s = time.perf_counter() - t0
+        with tf32_fault():
+            tf32_err = err_of(card(feed))
+            tf32_s = _seconds_per_call(lambda: card(feed), 10)
+        out["seconds"][name] = card_s
+        log(f"onnx {name}: {len(card.graph.nodes)} nodes, {sizes[name]['params'] / 1e6:.3f} M "
+            f"parameters, {sizes[name]['macs'] / 1e9:.3f} G multiply-adds, {len(want)} outputs, "
+            f"rel_err {err:.3e} (rtol {ONNX_RTOL}), card {card_s * 1e3:.3f} ms a call "
+            f"(fp32), CPU {cpu_s * 1e3:.1f} ms; with TF32: rel_err {tf32_err:.3e}, "
+            f"{tf32_s * 1e3:.3f} ms a call")
+        if not err <= ONNX_RTOL:
+            raise RuntimeError(f"onnx {name}: the card disagrees with the CPU ({err})")
+        if name in ONNX_TF32_MUST_FAIL and not tf32_err > ONNX_RTOL:
+            raise RuntimeError(f"onnx {name}: the check misses a TF32 run ({tf32_err})")
+        if name == "arcface":  # the planted fault, on the card's side only
+            w = card.graph.nodes[0].inputs[1]
+            faulty = dict(card.params, **{w: card.params[w] * ONNX_FAULT_SCALE})
+            fault = err_of(card.run(faulty, feed))
+            log(f"  planted fault, the first conv's weight x {ONNX_FAULT_SCALE} on the card: "
+                f"rel_err {fault:.3e}")
+            if not fault > ONNX_RTOL:
+                raise RuntimeError(f"the onnx check misses a conv weight off by 1% ({fault})")
+        del card, cpu
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    analyzer = FaceAnalyzer(os.path.join(root, "face_analysis"), device=dev)
+    face_mask, lip_mask, face = analyzer.face_and_lip_masks(img, 1.2)
+    torch.cuda.synchronize()
+    log(f"FaceAnalyzer on the card: backend {analyzer.backend}, landmarks "
+        f"{None if face.landmarks is None else face.landmarks.shape}, face mask "
+        f"{int((face_mask > 0).sum())} px, lip mask {int((lip_mask > 0).sum())} px, "
+        f"{time.perf_counter() - t0:.3f} s with the load")
+    if analyzer.backend != "onnx-torch" or face.landmarks is None or not lip_mask.any():
+        raise RuntimeError("the face analyzer did not take the three ONNX files")
+
+    data, sr = load_wav(WAV)
+    sep = MdxSeparator(paths["mdx"], device=dev)
+    vocals = sep.separate(data, sr)
+    runs = sep.calls
+    sep_s = _seconds_per_call(lambda: sep.separate(data, sr), 3)
+    want = MdxSeparator(paths["mdx"], device="cpu").separate(data, sr)
+    err = rel_err(vocals, want)
+    with tf32_fault():
+        tf32_err = rel_err(sep.separate(data, sr), want)
+    log(f"MDX U-Net separator on 1.wav ({len(data) / sr:.2f} s): {runs} graph runs a call, "
+        f"rel_err {err:.3e} against the CPU (rtol {SEPARATOR_RTOL}; with TF32 "
+        f"{tf32_err:.3e}), {sep_s:.3f} s a call on the card")
+    if vocals.shape != want.shape or not err <= SEPARATOR_RTOL:
+        raise RuntimeError(f"the separator on the card disagrees with the CPU ({err})")
+    if not tf32_err > SEPARATOR_RTOL:
+        raise RuntimeError(f"the separator check misses a TF32 run ({tf32_err})")
+    out["seconds"]["separate_1wav"] = sep_s
+
+    sep = MdxSeparator(synthetic.identity_mdx_graph(os.path.join(root, "identity.onnx")),
+                       device=dev)
+    vocals = sep.separate(data, sr)
+    n = min(len(vocals), len(data))
+    err = rel_err(vocals[:n], data[:n])
+    log(f"identity MDX at {synthetic.KIM_VOCAL_2_DIMS} on 1.wav: {len(vocals)} samples back, "
+        f"rel_err {err:.3e} against 1.wav (rtol {SEPARATOR_ROUND_TRIP_RTOL})")
+    if abs(len(vocals) - len(data)) > 4 or not err <= SEPARATOR_ROUND_TRIP_RTOL:
+        raise RuntimeError(f"the identity separator did not give back 1.wav ({err})")
+    shutil.rmtree(root)
+    return out
+
+
+def phase_cli(dev) -> dict:
+    """The product's entry point, `hallo_tpu_torch.inference.inference_process`
+    (python -m hallo_tpu_torch.inference), at full width on 1.jpg and 1.wav
+    with `--profile turbo`, bf16, 512^2 and without `--allow-partial`, over
+    synthetic checkpoint files in the reference's `pretrained_models/` layout
+    (the inventories' keys and shapes, fp16 values from a seed per file)
+    with the TFC-TDF U-Net at Kim_Vocal_2's dims as the vocal separator. Then the planted
+    fault: a VAE file with its keys renamed must make the CLI raise before
+    generation. The files are removed afterwards."""
+    import yaml
+
+    root = os.path.join(_build.BUILD_DIR, "cli")
+    pm = os.path.join(root, "pretrained_models")
+    keep = {
+        "sd_vae_ft_mse": ["encoder.conv_in.weight", "decoder.conv_out.bias"],
+        "sd15_unet": ["conv_in.weight"],
+        "animatediff_mm": [CLI_MOTION_KEY],
+        "net_pth": ["reference_unet.conv_in.weight", "denoising_unet.conv_in.weight",
+                    "denoising_unet." + CLI_MOTION_KEY, "face_locator.conv_in.weight",
+                    "imageproj.proj.weight", "audioproj.proj1.weight"],
+        "wav2vec2": ["encoder.layers.0.attention.q_proj.weight"],
+    }
+    t0 = time.perf_counter()
+    paths, kept = synthetic.write_pretrained_layout(pm, device=dev, keep=keep)
+    write_s = time.perf_counter() - t0
+    sizes = {name: os.path.getsize(p) for name, p in paths.items()}
+    log(f"synthetic pretrained_models/ (fp16): {sum(sizes.values()) / 1e9:.3f} GB written in "
+        f"{write_s:.1f} s: " + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in sizes.items()))
+    separator = synthetic.mdx_graph(os.path.join(pm, "audio_separator", "Kim_Vocal_2.onnx"))
+    config = json.loads(json.dumps(load_yaml(DEFAULT_YAML)))
+    config.update(base_model_path=os.path.join(pm, "stable-diffusion-v1-5"),
+                  motion_module_path=paths["animatediff_mm"],
+                  audio_ckpt_dir=os.path.dirname(paths["net_pth"]),
+                  source_image=IMAGE, driving_audio=WAV)
+    config["vae"]["model_path"] = os.path.join(pm, "sd-vae-ft-mse")
+    config["wav2vec"]["model_path"] = os.path.dirname(paths["wav2vec2"])
+    config["audio_separator"]["model_path"] = separator
+    config["face_analysis"]["model_path"] = os.path.join(pm, "face_analysis")  # absent
+    config_path = os.path.join(root, "inference.yaml")
+    with open(config_path, "w") as fh:
+        yaml.safe_dump(config, fh)
+    out_path, timing_path = os.path.join(root, "out.mp4"), os.path.join(root, "timing.json")
+    args = inference.build_parser().parse_args(
+        ["-c", config_path, "--profile", "turbo", "--output", out_path,
+         "--timing_json", timing_path])
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = inference.inference_process(args)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = launch_counts()
+    with open(timing_path) as fh:
+        timing = json.load(fh)
+    log(f"CLI (turbo, bf16, 512^2, 1.wav): {cli_s:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; timing.json {json.dumps(timing)}")
+    log(f"kernel launches in the CLI run: {counts}")
+
+    loaded = run.loaded
+    for name, report in loaded.reports.items():
+        n = len(getattr(loaded.models, name).state_dict())
+        log(f"  load {name}: loaded {len(report['loaded'])}/{n}, mismatched "
+            f"{len(report['shape_mismatch'])}, unused {len(report['unused_ckpt'])}, "
+            f"unmapped {len(report['unmapped_ckpt_keys'])}")
+        if len(report["loaded"]) != n or report["shape_mismatch"]:
+            raise RuntimeError(f"CLI: {name} did not load 100% of its tensors")
+    if sorted(loaded.reports) != sorted(MODULE_NAMES) or len(
+            loaded.wav2vec_report["loaded"]) != 211:
+        raise RuntimeError(f"CLI: loaded {sorted(loaded.reports)} and "
+                           f"{len(loaded.wav2vec_report['loaded'])} wav2vec2 tensors")
+    # each module's named tensors hold the last writer's values in bf16
+    checks = [
+        ("vae", "encoder.conv_in.weight", "sd_vae_ft_mse", "encoder.conv_in.weight", None),
+        ("vae", "decoder.conv_out.bias", "sd_vae_ft_mse", "decoder.conv_out.bias", None),
+        ("reference_net", "conv_in.weight", "net_pth", "reference_unet.conv_in.weight",
+         ("sd15_unet", "conv_in.weight")),
+        ("denoising_net", "conv_in.weight", "net_pth", "denoising_unet.conv_in.weight",
+         ("sd15_unet", "conv_in.weight")),
+        ("denoising_net", CLI_MOTION_KEY, "net_pth", "denoising_unet." + CLI_MOTION_KEY,
+         ("animatediff_mm", CLI_MOTION_KEY)),
+        ("face_locator", "conv_in.weight", "net_pth", "face_locator.conv_in.weight", None),
+        ("image_proj", "proj.weight", "net_pth", "imageproj.proj.weight", None),
+        ("audio_proj", "proj1.weight", "net_pth", "audioproj.proj1.weight", None),
+    ]
+    for module, key, file, file_key, overwritten in checks:
+        got = getattr(loaded.models, module).state_dict()[key].cpu()
+        want = kept[file][file_key].to(got.dtype)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"CLI: {module}.{key} is not {file}'s {file_key} in {got.dtype}")
+        if overwritten is not None and torch.equal(got, kept[overwritten[0]][
+                overwritten[1]].to(got.dtype)):
+            raise RuntimeError(f"CLI: {module}.{key} equals {overwritten[0]}'s: no merge shown")
+    w2v_key = keep["wav2vec2"][0]
+    if not torch.equal(loaded.audio_proc.model.state_dict()[w2v_key].cpu(),
+                       kept["wav2vec2"][w2v_key].float()):
+        raise RuntimeError("CLI: wav2vec2's tensors are not the file's")
+    log(f"  {len(checks) + 1} named tensors equal the last writer's values bit for bit "
+        "(net.pth over SD-1.5 and AnimateDiff)")
+    if loaded.audio_proc.separator is None or loaded.audio_proc.separator.calls < 1:
+        raise RuntimeError("CLI: the vocal separator did not run")
+
+    frames = np.stack(read_frames(out_path))
+    motion = float(frames.astype(np.float32).std(axis=0).mean())
+    log(f"  {out_path}: {frames.shape} uint8, mean std over time {motion:.2f} (uint8 units), "
+        f"separator runs {loaded.audio_proc.separator.calls}")
+    size = config["data"]["source_image"]["width"], config["data"]["source_image"]["height"]
+    if frames.shape != (75, size[1], size[0], 3) or not motion > 0.5:
+        raise RuntimeError(f"CLI: the video is {frames.shape} with std {motion} over time")
+    stages = {"image_preprocess", "init_params", "load_weights", "audio_preprocess",
+              "generate", "write_video"}
+    if set(timing["stages_s"]) != stages or not timing["seconds_per_1s_output"] > 0 or (
+            timing["sampler"], timing["steps"], timing["frames"]) != ("unipc", 8, 75):
+        raise RuntimeError(f"CLI: timing.json {timing}")
+    for name in ("flash_fwd_packed", "temporal_attn", "flash_fwd_t", "flash_fwd"):
+        if counts[name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched by the CLI")
+    del run, loaded
+    torch.cuda.empty_cache()
+
+    # the planted fault: the VAE's keys renamed
+    vae_path = paths["sd_vae_ft_mse"]
+    save_file({"encoder_v2." + k: v for k, v in load_file(vae_path).items()}, vae_path)
+    os.remove(out_path)
+    reset_counts()
+    try:
+        inference.inference_process(args)
+    except RuntimeError as exc:
+        if "vae: loaded 0/" not in str(exc):
+            raise
+        log(f"planted fault, the VAE's keys renamed: RuntimeError before generation "
+            f"({str(exc).splitlines()[1].strip()})")
+    else:
+        raise RuntimeError("CLI: a VAE file with renamed keys did not raise")
+    if launch_counts()["temporal_attn"] or os.path.exists(out_path):
+        raise RuntimeError("CLI: the renamed VAE raised only after generation began")
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return dict(counts=counts, timing=timing, seconds=cli_s, write_s=write_s)
+
+
 def profile_call(what: str, fn, out_path: str) -> list:
     """`fn` under torch.profiler: device time by kernel (top rows here, all
     rows to `out_path`) and the device's busy share of the wall time.
@@ -1591,6 +1980,7 @@ def main() -> None:
     table = phase_kernels(dev)
     log_k1_host_cost(dev)
     log_small_call_host_costs(dev)
+    phase_card_checks()
     torch.cuda.synchronize()
     audio = phase_audio(dev, os.path.join(_build.BUILD_DIR, "audio"))
     torch.cuda.synchronize()
@@ -1614,6 +2004,8 @@ def main() -> None:
     del slice_  # the trainer builds its own models
     torch.cuda.empty_cache()
     phase_trainer(dev)
+    phase_onnx(dev)
+    phase_cli(dev)
 
     rows = []
     for name, info in KERNELS.items():

@@ -9,7 +9,7 @@ leaves off; SchedulerConfig's `clip_sample`, off in the reference's DDIM). A
 port configuration's `dataclasses.asdict` builds the same JAX configuration.
 
 The YAML helpers (`unet_config_from_yaml_kwargs`, `DotDict`, `load_yaml`,
-`load_config`, `to_container`) are copies of the JAX package's without
+`load_config`, `merge_cli_overrides`, `to_container`) are copies of the JAX package's without
 OmegaConf: configs load as `DotDict`s.
 """
 
@@ -264,6 +264,27 @@ def load_config(path: str) -> Any:
     if path.endswith((".yaml", ".yml")):
         return load_yaml(path)
     raise ValueError(f"config must be .yaml/.yml or .py, got: {path}")
+
+
+def filter_non_none(mapping: Mapping[str, Any]) -> dict:
+    """Drop unset CLI arguments before they merge into a YAML config
+    (reference hallo/utils/config.py:8-25)."""
+    return {k: v for k, v in mapping.items() if v is not None}
+
+
+def _deep_merge(base: Any, override: Mapping[str, Any]) -> Any:
+    out = DotDict(dict(base))
+    for key, value in override.items():
+        if key in out and isinstance(out[key], Mapping) and isinstance(value, Mapping):
+            out[key] = _deep_merge(out[key], value)
+        else:
+            out[key] = DotDict.wrap(value)
+    return out
+
+
+def merge_cli_overrides(config: Any, args: Mapping[str, Any]) -> Any:
+    """`config` with the CLI arguments that are set laid over it."""
+    return _deep_merge(config, filter_non_none(dict(args)))
 
 
 def to_container(config: Any) -> dict:

@@ -1,13 +1,12 @@
-"""Driving-audio preprocessing: load a WAV, resample, wav2vec2-embed
-(counterpart of hallo_tpu/data/audio_processor.py; reference
+"""Driving-audio preprocessing: load a WAV, separate the vocals, resample,
+wav2vec2-embed (counterpart of hallo_tpu/data/audio_processor.py; reference
 hallo/datasets/audio_processor.py:22-177).
 
 WAV loading and resampling are numpy/scipy on the host (polyphase
-resampling in place of the reference's ffmpeg). The wav2vec2 encoder
-(`models.wav2vec.Wav2Vec2`, fp32) runs on the processor's device, the card
-unless the caller asks for the CPU. The reference's optional MDX-Net vocal
-separation needs an ONNX executor that the port does not have yet: asking
-for it raises.
+resampling in place of the reference's ffmpeg). The optional MDX-Net vocal
+separation (`data.mdx_separator`, the ONNX graph through the torch
+executor) and the wav2vec2 encoder (`models.wav2vec.Wav2Vec2`, fp32) run on
+the processor's device, the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ import numpy as np
 import torch
 
 from hallo_tpu_torch.config import Wav2Vec2Config
+from hallo_tpu_torch.data.mdx_separator import MdxSeparator
 from hallo_tpu_torch.models.wav2vec import Wav2Vec2, normalize_waveform
 
 
@@ -73,8 +73,12 @@ class AudioProcessor:
     `wav2vec_state_dict` carries HF Wav2Vec2Model keys (the reference's
     wav2vec2-base-960h checkpoint loads as it is, strictly) for a model of
     `wav2vec_config` (wav2vec2-base by default), built on `device`.
-    `audio_separator_model_path` naming a file that does not exist means no
-    vocal separation; an existing file raises NotImplementedError."""
+    `audio_separator_model_path` naming an existing file runs its MDX-Net
+    graph on the vocals first; a path with no file means no separation.
+    Divergence from hallo_tpu/data/audio_processor.py:106-113: a file that
+    exists but does not load (an op the executor lacks, a bad graph)
+    raises, where the JAX package logs it and goes on without
+    separation."""
 
     def __init__(
         self,
@@ -86,19 +90,16 @@ class AudioProcessor:
         audio_separator_model_path: Optional[str] = None,
         only_last_features: bool = False,
     ):
-        if audio_separator_model_path and os.path.isfile(audio_separator_model_path):
-            # an absent separator file means no separation, as in
-            # hallo_tpu/data/audio_processor.py:85-112; an existing one
-            # needs the ONNX executor, which the port does not have yet
-            raise NotImplementedError(
-                "vocal separation needs the ONNX executor, which the port does not have yet"
-            )
         if wav2vec_state_dict is None:
             raise ValueError("wav2vec_state_dict (HF Wav2Vec2Model keys) required")
         self.sample_rate = sample_rate
         self.fps = fps
         self.only_last_features = only_last_features
         self.device = torch.device(device)
+        self.separator = None
+        if audio_separator_model_path and os.path.isfile(audio_separator_model_path):
+            self.separator = MdxSeparator(audio_separator_model_path, output_sr=sample_rate,
+                                          device=self.device)
         with torch.device("meta"):
             model = Wav2Vec2(wav2vec_config or Wav2Vec2Config())
         model.to_empty(device=self.device).load_state_dict(wav2vec_state_dict, strict=True)
@@ -111,6 +112,8 @@ class AudioProcessor:
         multiple of `clip_length` with `sample_rate // fps` zero samples per
         missing frame (reference audio_processor.py:76-129)."""
         data, sr = load_wav(wav_path)
+        if self.separator is not None:
+            data, sr = self.separator.separate(data, sr), self.sample_rate
         data = resample(data, sr, self.sample_rate)
         wave_t = normalize_waveform(torch.from_numpy(np.ascontiguousarray(data))[None])[0]
 

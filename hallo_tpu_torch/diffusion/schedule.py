@@ -59,11 +59,17 @@ def alphas_cumprod(cfg: SchedulerConfig) -> np.ndarray:
 
 
 def inference_timesteps(cfg: SchedulerConfig, num_steps: int) -> np.ndarray:
-    """Descending timestep sequence for sampling (diffusers set_timesteps)."""
+    """Descending timestep sequence for sampling (diffusers set_timesteps).
+
+    The trailing grid keeps the first `num_steps` knots of the float
+    `arange`. At 62 step counts in 1-1000 (61, 103, 121, 122, 201, 206, ...)
+    the reference's `arange` (hallo_tpu/diffusion/schedule.py:62-67, as
+    diffusers) yields one knot more, t = -1, which indexes the zero-SNR end
+    of the tables; at every other count the two grids are the same."""
     t = cfg.num_train_timesteps
     if cfg.timestep_spacing == "trailing":
         step = t / num_steps
-        ts = np.round(np.arange(t, 0, -step)).astype(np.int64) - 1
+        ts = np.round(np.arange(t, 0, -step)).astype(np.int64)[:num_steps] - 1
     elif cfg.timestep_spacing == "leading":
         step = t // num_steps
         ts = (np.arange(0, num_steps) * step).round().astype(np.int64)[::-1].copy()

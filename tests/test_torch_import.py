@@ -1,9 +1,11 @@
 """hallo_tpu_torch imports torch and never the JAX package, jax or triton:
 in a fresh interpreter, importing every module of the package and running
-the tiny slice, the tiny audio path and one tiny stage-2 train step on the
-CPU leave none of them in sys.modules, and no source line of the port or of
-chip_smoke.py imports hallo_tpu. Also: the port's tiny widths are the JAX
-factory's, and its entry points default to the card."""
+the tiny slice, the tiny audio path, one tiny stage-2 train step, the host
+preprocessing, the ONNX executor with the vocal separator, the checkpoint
+loader and the preflight on the CPU leave none of them in sys.modules, and
+no source line of the port or of chip_smoke.py imports hallo_tpu. Also: the
+port's tiny widths are the JAX factory's, and its entry points default to
+the card."""
 
 import dataclasses
 import inspect
@@ -16,6 +18,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WAV = os.path.join(REPO, "examples", "driving_audios", "1.wav")
+IMAGE = os.path.join(REPO, "examples", "reference_images", "1.jpg")
+YAML = os.path.join(REPO, "configs", "inference", "default.yaml")
 
 PROGRAM = r"""
 import pkgutil, sys
@@ -49,6 +53,30 @@ batch = dict(
     masks=tuple(tuple(np.ones((1, (8 >> d) ** 2)) for _ in range(3)) for d in range(4)))
 state, metrics = step(TrainState.create(trainable, opt), batch, step_generator(0, 0, "cpu"))
 assert state.step == 1 and np.isfinite(metrics["loss"])
+import os, tempfile
+from hallo_tpu_torch.convert.onnx_io import OnnxNode, save_onnx
+from hallo_tpu_torch.convert.load_pretrained import load_pretrained
+from hallo_tpu_torch.data.image_processor import ImageProcessor
+from hallo_tpu_torch.data.mdx_separator import MdxSeparator
+from hallo_tpu_torch.inference import build_parser, resolve_settings
+from hallo_tpu_torch.config import load_yaml
+from hallo_tpu_torch import preflight_weights
+from hallo_tpu_torch.utils.video import StreamingVideoWriter, read_frames
+tmp = tempfile.mkdtemp()
+img = ImageProcessor((64, 64), "", device="cpu").preprocess(sys.argv[2])
+assert img.pixel_values.shape == (64, 64, 3) and len(img.lip_masks) == 4
+save_onnx(os.path.join(tmp, "id.onnx"), [OnnxNode("Identity", ["x"], ["y"], {})], {},
+          {"x": [1, 4, 64, 32]}, {"y": [1, 4, 64, 32]})
+sep = MdxSeparator(os.path.join(tmp, "id.onnx"), hop=40, device="cpu")
+assert sep.separate(np.zeros(8000, np.float32), 16000).shape[0] > 7000
+assert load_pretrained(models, base_model_path=tmp, vae_model_path=tmp) == {}
+assert preflight_weights.main(["--root", tmp]) == 0
+writer = StreamingVideoWriter(os.path.join(tmp, "v.mp4"), fps=25)
+writer.append(np.zeros((2, 16, 16, 3), np.uint8))
+writer.close()
+assert len(read_frames(os.path.join(tmp, "v.mp4"))) == 2
+s = resolve_settings(load_yaml(sys.argv[3]), build_parser().parse_args(["--profile", "turbo"]))
+assert (s["sampler"], s["inference_steps"]) == ("unipc", 8)
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "flax", "hallo_tpu")))
 """
@@ -58,7 +86,7 @@ _IMPORT_JAX_PACKAGE = re.compile(r"^\s*(import hallo_tpu\b(?!_torch)|from hallo_
 
 def test_port_never_imports_jax_triton_or_the_jax_package():
     out = subprocess.run(
-        [sys.executable, "-c", PROGRAM, WAV], cwd=REPO, capture_output=True, text=True,
+        [sys.executable, "-c", PROGRAM, WAV, IMAGE, YAML], cwd=REPO, capture_output=True, text=True,
         timeout=300, env={**os.environ, "PYTHONPATH": REPO},
     )
     assert out.returncode == 0, out.stderr
@@ -122,9 +150,22 @@ def test_config_copies_match_jax_package():
 
 
 def test_entry_points_default_to_the_card():
+    from hallo_tpu_torch import inference
+    from hallo_tpu_torch.convert.onnx_torch import OnnxExecutor
     from hallo_tpu_torch.data.audio_processor import AudioProcessor
+    from hallo_tpu_torch.data.face_analysis import FaceAnalyzer
+    from hallo_tpu_torch.data.image_processor import (
+        ImageProcessor, ImageProcessorForDataProcessing)
+    from hallo_tpu_torch.data.insight_torch import ArcFaceTorch, InsightTorchApp, ScrfdTorch
+    from hallo_tpu_torch.data.landmark_torch import TorchFaceLandmarker
+    from hallo_tpu_torch.data.mdx_separator import MdxSeparator
     from hallo_tpu_torch.pipelines.face_animate import HalloModels
     from hallo_tpu_torch.utils.factory import build_models, build_wav2vec
 
-    for fn in (build_models, build_wav2vec, HalloModels.create, AudioProcessor.__init__):
-        assert inspect.signature(fn).parameters["device"].default == torch.device("cuda")
+    for fn in (build_models, build_wav2vec, HalloModels.create, AudioProcessor.__init__,
+               OnnxExecutor.__init__, FaceAnalyzer.__init__, ImageProcessor.__init__,
+               ImageProcessorForDataProcessing.__init__, ScrfdTorch.__init__,
+               ArcFaceTorch.__init__, InsightTorchApp.__init__, TorchFaceLandmarker.__init__,
+               MdxSeparator.__init__):
+        assert inspect.signature(fn).parameters["device"].default == torch.device("cuda"), fn
+    assert inference.build_parser().get_default("device") == "cuda"

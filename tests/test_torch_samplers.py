@@ -9,6 +9,11 @@ the CPU.
 - The cache plans equal JAX's over a grid of steps, strides, warm-up,
   cool-down and tail; the fast and turbo trailing grids nest in the exact
   40-step grid.
+- `inference_timesteps` (the trailing grid) gives `num_steps` knots at
+  every count from 1 to 1000 and equals JAX's at the 938 counts where JAX's
+  has that many. Named divergence (ROADMAP Queue 3): at the other 62 (61,
+  103, 121, 122, 201, 206, ...) JAX's float `arange` yields one knot more,
+  t = -1, which indexes the zero-SNR end of the tables; the port drops it.
 - `logsnr_timesteps` equals JAX's for every count from 2 to 60. Named
   divergence: where JAX's collision pass moves the last knot below the
   trailing end (118-120 steps at rho 0.5, 181 on at rho 1) or asserts (61,
@@ -42,6 +47,36 @@ SHAPE = (1, 4, 8, 8, 4)
 
 def _grid(kind, n, rho=1.0):
     return None if kind == "trailing" else schedule.logsnr_timesteps(CFG, n, rho)
+
+
+def _trailing_counts():
+    """Step counts 1-1000 split by the length of JAX's trailing grid."""
+    right, extra = [], []
+    for n in range(1, 1001):
+        (right if len(jax_schedule.inference_timesteps(JCFG, n)) == n else extra).append(n)
+    return right, extra
+
+
+def test_trailing_grid_equals_jax_where_jax_has_num_steps_knots():
+    right, _ = _trailing_counts()
+    assert len(right) == 938
+    for n in right:
+        got = schedule.inference_timesteps(CFG, n)
+        np.testing.assert_array_equal(got, jax_schedule.inference_timesteps(JCFG, n),
+                                      err_msg=f"{n} steps")
+        assert got.dtype == np.int64
+
+
+def test_trailing_grid_drops_the_t_minus_1_knot_where_jax_keeps_it():
+    _, extra = _trailing_counts()
+    assert len(extra) == 62 and extra[:6] == [61, 103, 121, 122, 201, 206]
+    for n in extra:
+        got = schedule.inference_timesteps(CFG, n)
+        want = jax_schedule.inference_timesteps(JCFG, n)
+        assert len(got) == n and len(want) == n + 1 and want[-1] == -1
+        np.testing.assert_array_equal(got, want[:n])
+        assert got[-1] >= 0 and np.all(np.diff(got) < 0)
+        assert make_sampler(CFG, "unipc", n).num_steps == n
 
 
 @pytest.mark.parametrize("n", range(2, 61))
