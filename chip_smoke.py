@@ -46,7 +46,11 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    launches each of K1 (Lk 32, 4 and level 0, with and without its LSE), K4
    and K8 give the first launch's bits, and the DDIM, DPM-Solver++ and
    UniPC steps with their carries on the card match the CPU at 1e-6, with a
-   planted corrector fault (UniPC's `c_dt` zeroed) that must fail;
+   planted corrector fault (UniPC's `c_dt` zeroed) that must fail. The
+   kernel phase also holds K1 with its LSE and K5 at stage 1's shapes (B 8
+   single frames: the ReferenceNet's self-attention at Lq = Lk, the
+   denoiser's over the reference concat, the identity cross-attention at
+   levels 0-3), and the card checks repeat K1 300 times at Lq = Lk;
 3. the driving audio: the full-width wav2vec2-base (random weights from a
    seed, fp32) through `AudioProcessor.preprocess` on
    `examples/driving_audios/1.wav` (3 s), on it tiled 4x (12 s) and, under
@@ -70,6 +74,8 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    a run without it; then the fast profile and a static CFG-cache plan on
    the card against the CPU in fp32 at phase 4's small size, with planted
    faults (another sampler, another CFG weight) that the check must see;
+   then one clip of 2 identities at once (B 2, long-form with several
+   identities): seconds and peak memory;
 6. training: the same weights, with per-block gradient checkpointing, take
    stage-2 train steps (`make_train_step`, AdamW) at 512^2, batch 1, 14 + 2
    motion frames, bf16, on a synthetic batch from a seed: one warm-up
@@ -82,7 +88,25 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    cut to 1) with a synthetic 512^2 clip in `data/datasets.py`'s .npz
    format: 2 steps that write checkpoint-2, metrics.jsonl and final_net/,
    then a resume from checkpoint-2 for a third step;
-8. onnx: the port's ONNX executor (`convert/onnx_torch.py`) on the card
+8. static: `StaticPipeline` on the full-width 2D models (bf16), one 512^2
+   image with 40-step DDIM (seconds, peak memory, K1's and K4's launches),
+   then against the CPU in fp32 at 64x64 with a planted sampler fault;
+9. stage 1: the stage-1 step at configs/train/stage1.yaml's full width (B
+   8 single frames at 512^2, no checkpointing, bf16, AdamW in fp32; on an
+   out-of-memory the peak is logged and checkpointing, then smaller
+   batches, are tried): 1 + 3 steps (seconds, peak memory, K1's, K5's and
+   K4's launches a step), then one step's loss and each module's gradient
+   in fp32 on the card against the CPU at 64x64, with K5's dK/dV zeroed as
+   the planted fault; then the synthetic `pretrained_models/` files that
+   phases 10 and 12 read are written, once;
+10. the stage-1 trainer: `train_stage1_process` on stage1.yaml (at the
+   batch phase 9 ran, the 8-bit AdamW) over a synthetic 40-frame 512^2 clip
+   and the synthetic SD-1.5 UNet and VAE: 2 steps and checkpoint-2 (its
+   write and read timed), a resume to step 4 with a validation still and
+   the four exports, bit for bit against an unbroken 4-step run; then
+   `train_stage2_process` with `stage1_ckpt_dir` there holds the exports
+   bit for bit (in bf16) and takes a finite step;
+11. onnx: the port's ONNX executor (`convert/onnx_torch.py`) on the card
    against itself on the CPU in fp32, on seeded graphs of the four models'
    published architectures at their published depths and widths
    (`convert/synthetic.py`): SCRFD-10G at det size 640 (its detections on
@@ -92,7 +116,7 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    seconds per call in fp32 and with TF32 (which must fail the check); the
    face analyzer with the three face files, the separator with the U-Net
    against the CPU, and an identity MDX graph giving back 1.wav;
-9. cli: the product, `hallo_tpu_torch.inference.inference_process`, at full
+12. cli: the product, `hallo_tpu_torch.inference.inference_process`, at full
    width on 1.jpg and 1.wav (turbo, bf16, 512^2, no --allow-partial) over
    synthetic fp16 checkpoint files in the reference's `pretrained_models/`
    layout (the inventories' keys and shapes, about 7.8 GB, written under
@@ -112,6 +136,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import logging
 import os
@@ -120,13 +145,15 @@ import subprocess
 import sys
 import time
 
+import cv2
 import numpy as np
 import torch
 import torch.nn.functional as F
 from safetensors.torch import load_file, save_file
 
+from hallo_tpu_torch import config as cfglib
 from hallo_tpu_torch import inference
-from hallo_tpu_torch.config import SchedulerConfig, load_yaml
+from hallo_tpu_torch.config import SchedulerConfig, load_config, load_yaml
 from hallo_tpu_torch.convert import onnx_torch, synthetic
 from hallo_tpu_torch.convert.onnx_torch import OnnxExecutor
 from hallo_tpu_torch.data.audio_processor import AudioProcessor, load_wav
@@ -141,13 +168,18 @@ from hallo_tpu_torch.ops.attention import attention_reference
 from hallo_tpu_torch.ops.bench_temporal import timings
 from hallo_tpu_torch.pipelines.face_animate import (
     MODULE_NAMES, FaceAnimatePipeline, HalloModels, window_audio_embeddings)
+from hallo_tpu_torch.pipelines.bench_static import STATIC_2D
+from hallo_tpu_torch.pipelines.static import StaticPipeline
 from hallo_tpu_torch.train.bench_step import synthetic_batch
-from hallo_tpu_torch.train.bench_trainer import trainer_config
+from hallo_tpu_torch.train.bench_trainer import trainer_config, write_trainer_clip
+from hallo_tpu_torch.train.stage1 import train_stage1_process
 from hallo_tpu_torch.train.stage2 import train_stage2_process
 from hallo_tpu_torch.train.state import (
-    AdamW, OptimizerConfig, TrainState, global_norm, stage2_trainable, unfreeze)
+    AdamW, OptimizerConfig, TrainState, global_norm, stage1_trainable, stage2_trainable,
+    unfreeze)
 from hallo_tpu_torch.train.step import (
     TrainConfig, make_loss_fn, make_train_step, step_generator)
+from hallo_tpu_torch.utils import checkpoint as ckpt
 from hallo_tpu_torch.utils.factory import build_models, build_wav2vec, dummy_clip_inputs
 from hallo_tpu_torch.utils.video import read_frames
 
@@ -234,16 +266,49 @@ TRAIN_RTOL = 5e-2
 # 3.0 in place of 3.5, must exceed the limit.
 PROFILE_RTOL = 5e-2
 
+# The static pipeline on the card (bf16, kernels) against the same weights
+# on the CPU (fp32, plain versions) at phase_reference's small size (64x64,
+# B 1), DDIM at 8 steps from the same noise: relative L2 error of the final
+# latents. Every denoiser call carries the bf16 rounding that SLICE_RTOL
+# bounds, and the sampler mixes each step's error into the next, as in
+# PROFILE_RTOL. The planted fault, the CPU run with UniPC's update in place
+# of DDIM's, must exceed it.
+STATIC_RTOL = 5e-2
+
+# One stage-1 loss and gradient on the card in fp32 (kernels) against the
+# same weights and batch on the CPU (fp32, plain versions) at 64x64, B 2: the
+# loss's relative error and each trained module's (ReferenceNet, denoiser,
+# face locator, image projection) flattened gradient's relative L2 error.
+# The CPU tests hold the port's step against JAX's at rtol 1e-5 and 1e-4 a
+# leaf (tests/test_torch_stage1.py). On the card K1 and K5 round fp32 q, k, v
+# and dO to bf16 (the tensor cores' operands), so every attention carries
+# bf16's 0.4% rounding through the forward and the backward; the limit is
+# TRAIN_RTOL's. The planted fault, K5's dK/dV pass returning zeros (no
+# gradient reaches a K/V projection, nor the ReferenceNet's features through
+# the denoiser's K/V concat), must exceed it for the ReferenceNet.
+STAGE1_RTOL = TRAIN_RTOL
+
 # Kernel tests of tests/test_torch_kernels.py that chip_smoke.py runs after
-# its kernel phase: the rings' 300-launch repeats of K1 (Lk 32, 4 and level
-# 0, with and without its LSE), K4 and K8, and the samplers' steps on the
+# its kernel phase: the rings' 300-launch repeats of K1 (Lk 32, 4, level 0
+# and the stage-1 ReferenceNet's Lq = Lk, with and without its LSE), K4 and
+# K8, and the samplers' steps on the
 # card against the CPU with a planted corrector fault.
 CARD_CHECKS = ("repeats_bit_for_bit_over_300 or d512_and_winograd_kernels_are_bitwise_repeatable"
                " or sampler_steps_on_the_card or sampler_card_check")
-CARD_CHECK_COUNT = 6 + 1 + 6 + 1
+CARD_CHECK_COUNT = 8 + 1 + 6 + 1
 
 # A tensor that AnimateDiff's file and net.pth both hold (net.pth's wins).
 CLI_MOTION_KEY = "down_blocks.0.motion_modules.0.temporal_transformer.proj_in.weight"
+# The values of the synthetic files that the CLI's checks compare with.
+CLI_KEEP = {
+    "sd_vae_ft_mse": ["encoder.conv_in.weight", "decoder.conv_out.bias"],
+    "sd15_unet": ["conv_in.weight"],
+    "animatediff_mm": [CLI_MOTION_KEY],
+    "net_pth": ["reference_unet.conv_in.weight", "denoising_unet.conv_in.weight",
+                "denoising_unet." + CLI_MOTION_KEY, "face_locator.conv_in.weight",
+                "imageproj.proj.weight", "audioproj.proj1.weight"],
+    "wav2vec2": ["encoder.layers.0.attention.q_proj.weight"],
+}
 
 # The ONNX executor on the card (fp32: `OnnxExecutor.run` turns TF32 off,
 # as the product runs it) against itself on the CPU in fp32 on the same
@@ -285,6 +350,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WAV = os.path.join(REPO, "examples", "driving_audios", "1.wav")
 IMAGE = os.path.join(REPO, "examples", "reference_images", "1.jpg")
 DEFAULT_YAML = os.path.join(REPO, "configs", "inference", "default.yaml")
+STAGE1_YAML = os.path.join(REPO, "configs", "train", "stage1.yaml")
 
 # Rows of the kernels' table: the TPU kernel each replaces, and the path
 # whose run counts its launches.
@@ -617,6 +683,19 @@ def kernel_cases(dev):
         ("identity", 4096, 4, 320, False),
     ):
         cases += training_cases(randn, sdpa, dev, name, 14, lq, lk, c, 8, with_bias)
+    # Stage 1 (B 8 single frames at 512^2, where the ReferenceNet runs under
+    # gradient): the ReferenceNet's self-attention (Lq = Lk), the denoiser's
+    # over the reference concat with the dropout's uncond bias, and the
+    # identity cross-attention (Lk 4) at levels 0-3.
+    for name, lq, lk, c, with_bias in (
+        ("stage 1 ReferenceNet level 0", 4096, 4096, 320, False),
+        ("stage 1 level 0", 4096, 8192, 320, True),
+        ("stage 1 identity level 0", 4096, 4, 320, False),
+        ("stage 1 identity level 1", 1024, 4, 640, False),
+        ("stage 1 identity level 2", 256, 4, 1280, False),
+        ("stage 1 identity level 3", 64, 4, 1280, False),
+    ):
+        cases += training_cases(randn, sdpa, dev, name, 8, lq, lk, c, 8, with_bias)
     # K8 and K9, from a generator of their own
     gen = torch.Generator(device=dev).manual_seed(11)
     return cases + winograd_cases(dev, gen) + layout_cases(dev, gen)
@@ -1115,11 +1194,12 @@ def phase_audio(dev, out_dir: str) -> dict:
     return out
 
 
-def on_cpu_fp32(models: HalloModels, scale: str) -> HalloModels:
-    """The same weights as `models`, in fp32 on the CPU."""
+def on_cpu_fp32(models: HalloModels, scale: str, **unet_overrides) -> HalloModels:
+    """The same weights as `models` (built with `unet_overrides`), in fp32 on
+    the CPU."""
     host = {name: {k: v.float().cpu() for k, v in module.state_dict().items()}
             for name, module in models.modules().items()}
-    cpu = build_models(scale, device=torch.device("meta"))
+    cpu = build_models(scale, device=torch.device("meta"), unet_overrides=unet_overrides)
     for name, module in cpu.modules().items():
         module.to_empty(device="cpu").load_state_dict(host[name], strict=True)
     return cpu
@@ -1604,6 +1684,425 @@ def phase_trainer(dev) -> dict:
     return dict(counts=counts, seconds=seconds, resume_seconds=resume_s)
 
 
+# -- stage 1, the static pipeline, several identities ------------------------
+STAGE1_2D = dict(use_motion_module=False, use_audio_module=False)
+
+
+def phase_batch2(models: HalloModels, steps: int = 4, size: int = 512, clip: int = 16) -> dict:
+    """Long-form with several identities (BASELINE.json config 4): one clip
+    of 16 + 2 frames at 512^2 for 2 identities at once (distinct references,
+    embeddings and regions; shared audio), DDIM at `steps`: seconds of a warm
+    clip and peak memory."""
+    pipe = FaceAnimatePipeline(models, num_inference_steps=steps, clip_length=clip,
+                               n_motion_frames=2)
+    inputs = dummy_clip_inputs(models, size, size, clip, batch=2, seed=3)
+    pipe(**inputs, seed=0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    video = pipe(**inputs, seed=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"B 2 clip at {size}^2, {steps} DDIM steps: {seconds:.4f} s (warm), "
+        f"{2 * clip / seconds:.3f} frames/s over both identities, peak {peak / 2**30:.3f} GiB")
+    if video.shape != (2, clip, size, size, 3) or not np.isfinite(video).all():
+        raise RuntimeError(f"B 2 clip: video {video.shape}, finite {np.isfinite(video).all()}")
+    if not np.abs(video[0] - video[1]).mean() > 0:
+        raise RuntimeError("B 2 clip: the two identities gave the same video")
+    return dict(seconds=seconds, peak=peak)
+
+
+def phase_static(dev, scale: str = "full", size: int = 512, steps: int = 40,
+                 small: int = 64, profile_out: str = "") -> dict:
+    """`StaticPipeline` (BASELINE.json config 2, scripts/bench_static.py's
+    configuration): the full-width 2D models in bf16 (no motion or audio
+    modules, no inflated GroupNorm), one `size`^2 image with `steps`-step
+    DDIM and CFG at B 1: seconds a warm image, peak memory, K1's and K4's
+    launches (with `profile_out`, one more image under torch.profiler,
+    written there). Then the card against the same weights on the CPU in
+    fp32 at `small`^2, DDIM at 8 steps from the same noise (`STATIC_RTOL` on
+    the final latents), with a planted fault that must exceed it."""
+    models = build_models(scale, device=dev, dtype=torch.bfloat16, seed=0,
+                          unet_overrides=STATIC_2D)
+    pipe = StaticPipeline(models, num_inference_steps=steps)
+    ip = models.image_proj.config
+    rng = np.random.default_rng(4)
+    ref = rng.uniform(-1, 1, (1, size, size, 3)).astype(np.float32)
+    emb = rng.normal(size=(1, ip.clip_embeddings_dim)).astype(np.float32)
+    region = np.ones((1, size, size, 3), np.float32)
+    pipe(ref, emb, region, seed=0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for i in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        img = pipe(ref, emb, region, seed=i + 1)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"static: {size}^2, {steps}-step DDIM, B 1, bf16: seconds an image (warm) "
+        f"{[round(s, 4) for s in seconds]}, peak {peak / 2**30:.3f} GiB; launches an image: "
+        f"K1 {counts['flash_fwd_packed']}, K4 {counts['flash_fwd']}")
+    if img.shape != (1, size, size, 3) or not np.isfinite(img).all() or not img.std() > 0:
+        raise RuntimeError(f"static: image {img.shape}, std {img.std()}")
+    for name in ("flash_fwd_packed", "flash_fwd"):
+        if counts[name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched by the static pipeline")
+    if profile_out:
+        profile_call("static image", lambda: pipe(ref, emb, region, seed=3), profile_out)
+
+    cpu = on_cpu_fp32(models, scale, **STATIC_2D)
+    gen = torch.Generator().manual_seed(5)
+    call = (torch.rand(1, small, small, 3, generator=gen) * 2 - 1,
+            torch.randn(1, 1, small // 8, small // 8, 4, generator=gen),
+            torch.randn(1, ip.clip_embeddings_dim, generator=gen),
+            (torch.rand(1, small, small, 3, generator=gen) > 0.5).float())
+
+    def final(m, device, sampler="ddim"):
+        return StaticPipeline(m, num_inference_steps=8, sampler=sampler).denoise(
+            *(x.to(device) for x in call)).cpu()
+
+    got = final(models, dev)
+    want = final(cpu, torch.device("cpu"))
+    err = rel_err(got, want)
+    fault = rel_err(final(cpu, torch.device("cpu"), sampler="unipc"), want)
+    log(f"static vs CPU fp32 at {small}x{small}, DDIM 8: final latents rel_err {err:.3e} "
+        f"(rtol {STATIC_RTOL}); planted fault, UniPC's update in place of DDIM's: {fault:.3e}")
+    if not err <= STATIC_RTOL:
+        raise RuntimeError(f"static: the card disagrees with the CPU fp32 reference ({err})")
+    if not fault > STATIC_RTOL:
+        raise RuntimeError(f"static: the check misses the planted fault ({fault})")
+    del models, cpu, pipe
+    torch.cuda.empty_cache()
+    return dict(seconds=seconds, peak=peak, counts=counts, rel_err=err, fault=fault)
+
+
+def stage1_batch(b: int, size: int, emb_dim: int, seed: int, fixed: bool) -> dict:
+    """A synthetic stage-1 batch of `b` single frames (numpy, the JAX
+    layouts); with `fixed`, its noise and timesteps too."""
+    rng = np.random.default_rng(seed)
+    batch = dict(
+        pixel_values=rng.uniform(-1, 1, (b, 1, size, size, 3)).astype(np.float32),
+        ref_pixels=rng.uniform(-1, 1, (b, size, size, 3)).astype(np.float32),
+        face_emb=rng.normal(size=(b, emb_dim)).astype(np.float32),
+        face_region=(rng.uniform(size=(b, size, size, 3)) > 0.3).astype(np.float32),
+    )
+    if fixed:
+        batch.update(noise=rng.normal(size=(b, 1, size // 8, size // 8, 4)).astype(np.float32),
+                     timesteps=np.linspace(50, 950, b).astype(np.int64))
+    return batch
+
+
+def stage1_steps(dev, scale: str, size: int, batch: int, remat: bool,
+                 profile_out: str = "") -> dict:
+    """1 + 3 stage-1 train steps (stage1.yaml's settings: AdamW in fp32,
+    warm-up 1, uncond_ratio 0.1, bf16) on one synthetic batch; seconds a
+    step, peak memory, the launches a step; with `profile_out`, one more
+    step under torch.profiler, written there."""
+    models = build_models(scale, device=dev, dtype=torch.bfloat16, seed=0, remat=remat,
+                          unet_overrides=STAGE1_2D)
+    trainable = unfreeze(models.modules(), stage1_trainable)
+    opt = AdamW(OptimizerConfig(learning_rate=1e-5, lr_warmup_steps=1))
+    state = TrainState.create(trainable, opt)
+    step = make_train_step(models, trainable, opt, TrainConfig(
+        stage=1, uncond_img_ratio=0.1, uncond_audio_ratio=0.0, uncond_ia_ratio=0.0,
+        start_ratio=0.0))
+    data = stage1_batch(batch, size, models.image_proj.config.clip_embeddings_dim, 0, False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, data, step_generator(0, 0, dev))
+    torch.cuda.synchronize()
+    log(f"stage-1 warm-up step: {time.perf_counter() - t0:.3f} s, loss {m['loss']:.5f} "
+        f"grad_norm {m['grad_norm']:.5f}")
+    reset_counts()
+    seconds, metrics = [], []
+    for i in range(1, 4):
+        t0 = time.perf_counter()
+        state, m = step(state, data, step_generator(0, i, dev))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        metrics.append(m)
+        if m["skipped"] or not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            raise RuntimeError(f"stage-1 step {i}: non-finite loss or gradients ({m})")
+    per_step = {k: v / 3 for k, v in launch_counts().items()}
+    if profile_out:
+        profile_call("stage-1 step", lambda: step(state, data, step_generator(0, 4, dev)),
+                     profile_out)
+    return dict(seconds=seconds, peak=torch.cuda.max_memory_allocated(), per_step=per_step,
+                metrics=metrics, n_train=sum(p.numel() for p in trainable.values()))
+
+
+def stage1_loss_and_grads(models: HalloModels, batch: dict) -> tuple:
+    """One stage-1 loss (no dropout) and each trained module's flattened
+    fp32 gradient, on the CPU."""
+    trainable = unfreeze(models.modules(), stage1_trainable)
+    cfg = TrainConfig(stage=1, uncond_img_ratio=0.0, uncond_audio_ratio=0.0,
+                      uncond_ia_ratio=0.0, start_ratio=0.0)
+    loss = make_loss_fn(models, cfg)(batch, torch.Generator(device=models.device))
+    grads = torch.autograd.grad(loss, list(trainable.values()), allow_unused=True)
+    groups: dict = {}
+    for name, p, g in zip(trainable, trainable.values(), grads):
+        g = torch.zeros_like(p) if g is None else g
+        groups.setdefault(name.split(".", 1)[0], []).append(g.float().flatten().cpu())
+    return loss.item(), {k: torch.cat(v) for k, v in groups.items()}
+
+
+def phase_stage1(dev, scale: str = "full", size: int = 512, small: int = 64,
+                 profile_out: str = "") -> dict:
+    """The stage-1 step at configs/train/stage1.yaml's full width: 512^2,
+    train_bs 8, no gradient checkpointing, bf16, AdamW in fp32. If it runs
+    out of memory: its peak is logged, then the denoiser's per-block
+    checkpointing (the YAML's `gradient_checkpointing: true`), then halved
+    batches (with `profile_out`, one more step under torch.profiler). Then
+    one step's loss and each module's gradient in fp32 on the card against
+    the CPU at `small`^2, with a planted backward fault."""
+    cfg = load_config(STAGE1_YAML)
+    batch, remat = int(cfg.data.train_bs), bool(cfg.solver.gradient_checkpointing)
+    tried = []
+    while True:
+        oom = None
+        try:
+            run = stage1_steps(dev, scale, size, batch, remat, profile_out)
+        except torch.cuda.OutOfMemoryError as exc:
+            oom = str(exc).splitlines()[0]
+        if oom is None:
+            break
+        peak = torch.cuda.max_memory_allocated()
+        tried.append(dict(batch=batch, remat=remat, peak=peak))
+        log(f"stage-1 step at B {batch}, checkpointing {remat}: out of memory, peak "
+            f"{peak / 2**30:.3f} GiB ({oom})")
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not remat:
+            remat = True
+        elif batch > 1:
+            batch //= 2
+        else:
+            raise RuntimeError("stage-1 step: out of memory at B 1 with checkpointing")
+    seconds = run["seconds"]
+    log(f"stage-1 step at {size}^2, B {batch}, checkpointing {remat}, bf16, AdamW fp32, "
+        f"{run['n_train']} trained parameters: seconds per step "
+        f"{[round(s, 4) for s in seconds]}, median {float(np.median(seconds)):.4f}; peak "
+        f"{run['peak'] / 2**30:.3f} GiB; losses {[round(m['loss'], 5) for m in run['metrics']]}, "
+        f"grad norms {[round(m['grad_norm'], 5) for m in run['metrics']]}")
+    log(f"kernel launches per stage-1 step: {run['per_step']}")
+    for name in ("flash_fwd_packed", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"):
+        if run["per_step"][name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched by the stage-1 step")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The card in fp32 against the CPU at `small`^2, B 2: every trainable
+    # tensor perturbed first, so that no zero-initialised layer (the face
+    # locator's conv_out) hides the gradient before it.
+    models = build_models(scale, device=dev, dtype=torch.float32, seed=0,
+                          unet_overrides=STAGE1_2D)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():
+        for p in unfreeze(models.modules(), stage1_trainable).values():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device=dev).to(p.dtype))
+    data = stage1_batch(2, small, models.image_proj.config.clip_embeddings_dim, 1, True)
+    card_loss, card_grads = stage1_loss_and_grads(models, data)
+    cpu = on_cpu_fp32(models, scale, **STAGE1_2D)
+    cpu_loss, cpu_grads = stage1_loss_and_grads(cpu, data)
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    errs = {k: rel_err(card_grads[k], cpu_grads[k]) for k in cpu_grads}
+    log(f"stage-1 step in fp32, card vs CPU at {small}x{small}, B 2: loss {card_loss:.6f} vs "
+        f"{cpu_loss:.6f} (rel {loss_err:.3e}); gradient rel_err by module "
+        f"{ {k: float(f'{e:.3e}') for k, e in errs.items()} } (rtol {STAGE1_RTOL})")
+    if not (loss_err <= STAGE1_RTOL and max(errs.values()) <= STAGE1_RTOL):
+        raise RuntimeError(f"the stage-1 step on the card disagrees with the CPU "
+                           f"(loss {loss_err}, gradients {errs})")
+    real = flash.flash_bwd_dkv
+    flash.flash_bwd_dkv = lambda a: tuple(
+        torch.zeros(t.shape, dtype=a.dtype, device=t.device) for t in (a.k, a.v))
+    try:
+        _, fault_grads = stage1_loss_and_grads(models, data)
+    finally:
+        flash.flash_bwd_dkv = real
+    fault = rel_err(fault_grads["reference_net"], cpu_grads["reference_net"])
+    log(f"planted fault, K5's dK/dV zeroed: the ReferenceNet's gradient rel_err {fault:.3e}")
+    if not fault > STAGE1_RTOL:
+        raise RuntimeError(f"the stage-1 check misses a zeroed dK/dV ({fault})")
+    del models, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(batch=batch, remat=remat, tried=tried, seconds=seconds, peak=run["peak"],
+                per_step=run["per_step"], loss_err=loss_err, grad_errs=errs, fault=fault)
+
+
+@contextlib.contextmanager
+def timed_checkpoints(out: dict):
+    """Wall seconds of every `save_train_state` and `load_train_state` call
+    (each ends with its files written or its tensors on the card) while the
+    block runs, into out["save"] and out["load"]."""
+    saved = ckpt.save_train_state, ckpt.load_train_state
+
+    def timed(kind, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            out.setdefault(kind, []).append(time.perf_counter() - t0)
+            return result
+        return call
+
+    ckpt.save_train_state = timed("save", saved[0])
+    ckpt.load_train_state = timed("load", saved[1])
+    try:
+        yield out
+    finally:
+        ckpt.save_train_state, ckpt.load_train_state = saved
+
+
+def phase_trainer1(dev, pretrained: str, batch: int, remat: bool) -> dict:
+    """`train_stage1_process` (python -m hallo_tpu_torch.train.stage1) on
+    configs/train/stage1.yaml at 512^2 with the 8-bit AdamW, at the batch
+    and checkpointing `phase_stage1` ran (the YAML's, or its cut), reading
+    the synthetic SD-1.5 UNet and VAE under `pretrained`, on a synthetic
+    40-frame clip in `data/datasets.py`'s .npz layout: 2 steps with
+    checkpoint-2, then a resume to step 4 with a validation still and the
+    four exports, held bit for bit against an unbroken 4-step run; then
+    `train_stage2_process` with `stage1_ckpt_dir` there takes a step. The
+    checkpoint write and read are timed; the files are removed after."""
+    root = os.path.join(_build.BUILD_DIR, "trainer1")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    log(f"trainer1: {free / 1e9:.1f} GB free under {root}")
+    cfg = load_config(STAGE1_YAML)
+    cfg.data.train_bs = batch
+    cfg.solver.gradient_checkpointing = remat
+    cfg.solver.use_8bit_adam = True
+    cfg.data.meta_paths = [write_trainer_clip(os.path.join(root, "data"), 40,
+                                              int(cfg.data.train_width), seed=4)]
+    cfg.base_model_path = os.path.join(pretrained, "stable-diffusion-v1-5")
+    cfg.vae_model_path = os.path.join(pretrained, "sd-vae-ft-mse")
+    cfg.output_dir, cfg.log_every, cfg.checkpointing_steps = root, 1, 2
+    cfg.total_limit = 1
+    cfg.val.validation_steps = 4
+
+    def run(name: str, steps: int, **changes):
+        c = cfglib.DotDict.wrap(json.loads(json.dumps(cfg)))
+        c.exp_name = name
+        c.solver.max_train_steps = steps
+        c.update(changes)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_stage1_process(c, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(root, name, "metrics.jsonl")) as fh:
+            lines = [json.loads(line) for line in fh]
+        log(f"trainer1 {name} to step {steps}: {seconds:.3f} s with the build, the load and "
+            f"the files, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+            f"(step, loss, grad_norm, sec): "
+            f"{[(r['step'], r['loss'], r['grad_norm'], r['sec']) for r in lines]}")
+        if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in lines):
+            raise RuntimeError(f"trainer1: non-finite loss or grad norm in {lines}")
+        masters = {k: v.cpu() for k, v in state.params.items()}
+        del state
+        torch.cuda.empty_cache()
+        return masters, launch_counts(), seconds
+
+    times: dict = {}
+    with timed_checkpoints(times):
+        _, counts, first_s = run("stage1", 2)
+        exp = os.path.join(root, "stage1")
+        if not os.path.isfile(os.path.join(exp, "checkpoint-2", "train_state.pt")):
+            raise RuntimeError("trainer1: no checkpoint-2 after 2 steps")
+        ckpt_bytes = os.path.getsize(os.path.join(exp, "checkpoint-2", "train_state.pt"))
+        # the resume writes no checkpoint of its own: checkpoint-2 is the one timed
+        resumed, _, resume_s = run("stage1", 4, checkpointing_steps=100)
+    log(f"trainer1 launches in the first 2 steps: {counts}")
+    for name in ("flash_fwd_packed", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"):
+        if counts[name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched by the stage-1 trainer")
+    log(f"trainer1 checkpoint: {ckpt_bytes / 1e9:.3f} GB (8-bit AdamW); written in "
+        f"{times['save'][0]:.3f} s, read into the card in {times['load'][0]:.3f} s")
+    shutil.rmtree(os.path.join(exp, "checkpoint-2"))
+    stills = sorted(os.listdir(os.path.join(exp, "validation")))
+    if stills != ["step4_sample0.png"]:
+        raise RuntimeError(f"trainer1: validation stills {stills}")
+    still = cv2.imread(os.path.join(exp, "validation", stills[0]))
+    log(f"trainer1 validation still: {still.shape}, std {still.std():.2f}")
+    size = int(cfg.data.train_width)
+    if still.shape != (size, size, 3) or not still.std() > 0:
+        raise RuntimeError("trainer1: the validation still is empty")
+    straight, _, straight_s = run("straight", 4, checkpointing_steps=100, val=dict(
+        validation_steps=0))
+    diff = [k for k, v in straight.items() if not torch.equal(resumed[k], v)]
+    log(f"trainer1 resume (steps 3-4 after checkpoint-2) against the unbroken 4-step run "
+        f"({straight_s:.3f} s): {len(straight) - len(diff)} of {len(straight)} masters equal "
+        f"bit for bit")
+    if diff or resumed.keys() != straight.keys():
+        raise RuntimeError(f"trainer1: the resumed masters differ from the unbroken run's "
+                           f"in {len(diff)} tensors: {diff[:5]}")
+    shutil.rmtree(os.path.join(root, "straight"))
+
+    # stage 2 from the exports, over the same synthetic pretrained files
+    exports = {name: torch.load(os.path.join(exp, f"final_{name}", f"{name}.pt"),
+                                map_location="cpu", weights_only=True)
+               for name in ("reference_net", "denoising_net", "face_locator", "image_proj")}
+    for name, sd in exports.items():
+        for key, value in sd.items():
+            if f"{name}.{key}" in resumed and not torch.equal(value, resumed[f"{name}.{key}"]):
+                raise RuntimeError(f"trainer1: export {name}.{key} is not the master")
+    cfg2 = trainer_config(os.path.join(root, "stage2"))
+    cfg2.solver.max_train_steps = 1
+    cfg2.stage1_ckpt_dir = exp
+    cfg2.base_model_path, cfg2.vae_model_path = cfg.base_model_path, cfg.vae_model_path
+    cfg2.mm_path = os.path.join(pretrained, "motion_module", "mm_sd_v15_v2.ckpt")
+    reset_counts()
+    t0 = time.perf_counter()
+    state2 = train_stage2_process(cfg2, dev)
+    torch.cuda.synchronize()
+    stage2_s = time.perf_counter() - t0
+    with open(os.path.join(cfg2.output_dir, cfg2.exp_name, "metrics.jsonl")) as fh:
+        line = json.loads(fh.readline())
+    final = os.path.join(cfg2.output_dir, cfg2.exp_name, "final_net")
+    unequal = []
+    for name, sd in exports.items():
+        got = torch.load(os.path.join(final, f"{name}.pt"), map_location="cpu",
+                         weights_only=True)
+        unequal += [f"{name}.{k}" for k, v in sd.items()
+                    if not torch.equal(got[k], v.to(got[k].dtype))]
+    log(f"stage 2 from the stage-1 exports: {stage2_s:.3f} s, step {state2.step}, loss "
+        f"{line['loss']:.5f}, grad_norm {line['grad_norm']:.5f}; "
+        f"{sum(len(sd) for sd in exports.values()) - len(unequal)} exported tensors held bit "
+        f"for bit (in bf16) by the stage-2 models")
+    if unequal or state2.step != 1 or not (np.isfinite(line["loss"])
+                                           and np.isfinite(line["grad_norm"])):
+        raise RuntimeError(f"stage 2 from the stage-1 exports: {len(unequal)} tensors differ "
+                           f"({unequal[:5]}), step {state2.step}, {line}")
+    del state2, resumed, straight, exports
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return dict(counts=counts, first_s=first_s, resume_s=resume_s, straight_s=straight_s,
+                stage2_s=stage2_s, ckpt_bytes=ckpt_bytes, **times)
+
+
+def write_pretrained(dev) -> tuple:
+    """The synthetic `pretrained_models/` files (the inventories' keys and
+    shapes, fp16 values from a seed per file) that the stage-1 trainer and
+    the CLI read, written once; `CLI_KEEP`'s values kept for the checks."""
+    root = os.path.join(_build.BUILD_DIR, "cli", "pretrained_models")
+    t0 = time.perf_counter()
+    paths, kept = synthetic.write_pretrained_layout(root, device=dev, keep=CLI_KEEP)
+    write_s = time.perf_counter() - t0
+    sizes = {name: os.path.getsize(p) for name, p in paths.items()}
+    log(f"synthetic pretrained_models/ (fp16): {sum(sizes.values()) / 1e9:.3f} GB written in "
+        f"{write_s:.1f} s: " + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in sizes.items()))
+    return root, paths, kept, write_s
+
+
 def phase_card_checks() -> None:
     """`CARD_CHECKS`, run by pytest in a process of its own (it loads the
     kernels built above); fails unless all of them pass."""
@@ -1779,34 +2278,20 @@ def phase_onnx(dev) -> dict:
     return out
 
 
-def phase_cli(dev) -> dict:
+def phase_cli(dev, pretrained: tuple) -> dict:
     """The product's entry point, `hallo_tpu_torch.inference.inference_process`
     (python -m hallo_tpu_torch.inference), at full width on 1.jpg and 1.wav
     with `--profile turbo`, bf16, 512^2 and without `--allow-partial`, over
     synthetic checkpoint files in the reference's `pretrained_models/` layout
-    (the inventories' keys and shapes, fp16 values from a seed per file)
-    with the TFC-TDF U-Net at Kim_Vocal_2's dims as the vocal separator. Then the planted
+    (`write_pretrained`'s, which the stage-1 trainer read before) with the
+    TFC-TDF U-Net at Kim_Vocal_2's dims as the vocal separator. Then the planted
     fault: a VAE file with its keys renamed must make the CLI raise before
     generation. The files are removed afterwards."""
     import yaml
 
-    root = os.path.join(_build.BUILD_DIR, "cli")
-    pm = os.path.join(root, "pretrained_models")
-    keep = {
-        "sd_vae_ft_mse": ["encoder.conv_in.weight", "decoder.conv_out.bias"],
-        "sd15_unet": ["conv_in.weight"],
-        "animatediff_mm": [CLI_MOTION_KEY],
-        "net_pth": ["reference_unet.conv_in.weight", "denoising_unet.conv_in.weight",
-                    "denoising_unet." + CLI_MOTION_KEY, "face_locator.conv_in.weight",
-                    "imageproj.proj.weight", "audioproj.proj1.weight"],
-        "wav2vec2": ["encoder.layers.0.attention.q_proj.weight"],
-    }
-    t0 = time.perf_counter()
-    paths, kept = synthetic.write_pretrained_layout(pm, device=dev, keep=keep)
-    write_s = time.perf_counter() - t0
-    sizes = {name: os.path.getsize(p) for name, p in paths.items()}
-    log(f"synthetic pretrained_models/ (fp16): {sum(sizes.values()) / 1e9:.3f} GB written in "
-        f"{write_s:.1f} s: " + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in sizes.items()))
+    pm, paths, kept, write_s = pretrained  # `write_pretrained`'s files
+    root = os.path.dirname(pm)
+    keep = CLI_KEEP
     separator = synthetic.mdx_graph(os.path.join(pm, "audio_separator", "Kim_Vocal_2.onnx"))
     config = json.loads(json.dumps(load_yaml(DEFAULT_YAML)))
     config.update(base_model_path=os.path.join(pm, "stable-diffusion-v1-5"),
@@ -1970,42 +2455,68 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4, help="DDIM steps per clip")
     ap.add_argument("--profile-out", metavar="PATH",
-                    help="also profile one clip and one train step; write every kernel's "
-                         "device time to PATH and to PATH with _train before its suffix")
+                    help="also profile one clip, one stage-2 and one stage-1 train step and "
+                         "one static image; write every kernel's device time to PATH and to "
+                         "PATH with _train, _stage1 and _static before its suffix")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
 
+    t_start = last = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        """Log the seconds since the previous mark (the phase's own)."""
+        nonlocal last
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        log(f"phase {phase}: {now - last:.1f} s ({now - t_start:.1f} s in all)")
+        last = now
+
     preflight()
     dev = torch.device("cuda", 0)
+    mark("preflight and the build")
     table = phase_kernels(dev)
     log_k1_host_cost(dev)
     log_small_call_host_costs(dev)
+    mark("kernels")
     phase_card_checks()
-    torch.cuda.synchronize()
+    mark("card checks")
     audio = phase_audio(dev, os.path.join(_build.BUILD_DIR, "audio"))
-    torch.cuda.synchronize()
+    mark("audio")
     slice_ = phase_slice(dev, args.steps, audio["emb"], audio["audio_length"])
-    torch.cuda.synchronize()
     if args.profile_out:
         phase_profile(slice_["pipe"], slice_["inputs"], args.profile_out)
+    mark("slice")
     cpu = on_cpu_fp32(slice_["models"], "full")
     phase_reference(slice_["models"], cpu, dev)
-    torch.cuda.synchronize()
+    mark("reference")
     phase_profiles(slice_["models"], cpu, slice_)
-    torch.cuda.synchronize()
+    mark("profiles")
     del cpu
-    train_profile = ""
+    train_profile = static_profile = stage1_profile = ""
     if args.profile_out:
         root, ext = os.path.splitext(args.profile_out)
-        train_profile = f"{root}_train{ext}"
+        train_profile, static_profile, stage1_profile = (
+            f"{root}_{name}{ext}" for name in ("train", "static", "stage1"))
+    phase_batch2(slice_["models"], args.steps)
+    mark("B 2 clip")
     train = phase_train(slice_["models"], dev, profile_out=train_profile)
-    torch.cuda.synchronize()
+    mark("train")
     launches = {"slice": slice_["counts"], "audio": audio["counts"], "train": train["counts"]}
     del slice_  # the trainer builds its own models
     torch.cuda.empty_cache()
     phase_trainer(dev)
+    mark("trainer")
+    phase_static(dev, profile_out=static_profile)
+    mark("static")
+    stage1 = phase_stage1(dev, profile_out=stage1_profile)
+    mark("stage 1")
+    pretrained = write_pretrained(dev)
+    phase_trainer1(dev, pretrained[0], stage1["batch"], stage1["remat"])
+    mark("stage-1 trainer, the files included")
     phase_onnx(dev)
-    phase_cli(dev)
+    mark("onnx")
+    phase_cli(dev, pretrained)
+    mark("cli")
 
     rows = []
     for name, info in KERNELS.items():

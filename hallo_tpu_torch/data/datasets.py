@@ -1,13 +1,15 @@
-"""The stage-2 training dataset (the port's copy of
-hallo_tpu/data/datasets.py's `TalkingVideoDataset` and `batch_iterator`).
+"""The training datasets (the port's copy of hallo_tpu/data/datasets.py's
+`FaceMaskDataset`, `TalkingVideoDataset` and `batch_iterator`).
 
-Reference: hallo/datasets/talk_video.py:83-316. Items come from
-preprocessed .npz clips (scripts/data_preprocess.py's format: frames,
-audio_emb, face_emb, face_region and the {full, face, lip}_mask_{level}
-pyramids) and are yielded as numpy batches in the layouts
-`train.step.make_train_step` takes:
+Reference: hallo/datasets/mask_image.py:21-154 (stage 1) and
+talk_video.py:83-316 (stage 2). Items come from preprocessed .npz clips
+(scripts/data_preprocess.py's format: frames, audio_emb, face_emb,
+face_region and the {full, face, lip}_mask_{level} pyramids) and are
+yielded as numpy batches in the layouts `train.step.make_train_step` takes:
 
-    pixel_values (B, F, H, W, 3), ref_pixels (B, H, W, 3),
+    stage 1: pixel_values (B, 1, H, W, 3), ref_pixels (B, H, W, 3),
+    face_emb (B, E), face_region (B, H, W, 3);
+    stage 2: pixel_values (B, F, H, W, 3), ref_pixels (B, H, W, 3),
     motion_pixels (B, M, H, W, 3), audio_windows (B, F, 2m+1, blocks, C),
     face_emb (B, E), face_region (B, H, W, 3),
     masks 4 x (full, face, lip) each (B, L_d)
@@ -23,6 +25,55 @@ import random
 from typing import Dict, Iterator, List
 
 import numpy as np
+
+
+def _to_pm1(x: np.ndarray) -> np.ndarray:
+    return x.astype(np.float32) / 255.0 * 2.0 - 1.0
+
+
+class FaceMaskDataset:
+    """Stage-1 items: a reference frame, a target frame at least
+    `sample_margin` frames away, the face region and the face embedding
+    (the clips are stored at the training size: JAX's unused `img_size` is
+    not taken)."""
+
+    def __init__(self, meta_paths: List[str], sample_margin: int = 30, seed: int = 0):
+        self.meta: List[dict] = []
+        for path in meta_paths:
+            with open(path) as f:
+                self.meta.extend(json.load(f))
+        self.sample_margin = sample_margin
+        self.rng = random.Random(seed)
+
+    def __len__(self) -> int:
+        return len(self.meta)
+
+    def clip_path(self, idx: int) -> str:
+        return self.meta[idx]["clip_path"]
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        return self.assemble(np.load(self.clip_path(idx)))
+
+    def assemble(self, clip) -> Dict[str, np.ndarray]:
+        """Build the item from a clip's npz contents; the draws follow the
+        JAX package's order (reference, then target)."""
+        frames = clip["frames"]  # (T, H, W, 3) uint8
+        t = len(frames)
+        ref_idx = self.rng.randrange(t)
+        margin = min(self.sample_margin, t - 1)
+        # the target at least `margin` away, wrapped (mask_image.py:103-112)
+        if ref_idx + margin < t:
+            tgt_idx = self.rng.randrange(ref_idx + margin, t)
+        elif ref_idx - margin > 0:
+            tgt_idx = self.rng.randrange(0, ref_idx - margin)
+        else:
+            tgt_idx = self.rng.randrange(t)
+        return dict(
+            pixel_values=_to_pm1(frames[tgt_idx])[None],  # (1, H, W, 3)
+            ref_pixels=_to_pm1(frames[ref_idx]),
+            face_emb=clip["face_emb"].astype(np.float32),
+            face_region=clip["face_region"].astype(np.float32),
+        )
 
 
 class TalkingVideoDataset:
@@ -70,9 +121,6 @@ class TalkingVideoDataset:
         if len(idxs) < f:  # pad by repeating the last frame
             idxs = np.concatenate([idxs, np.repeat(idxs[-1:], f - len(idxs))])
 
-        def to_pm1(x):
-            return x.astype(np.float32) / 255.0 * 2.0 - 1.0
-
         # audio windows: center +-margin gather (talk_video.py:243-250)
         centers = idxs[:, None] + np.arange(-margin, margin + 1)[None, :]
         centers = np.clip(centers, 0, t - 1)
@@ -91,9 +139,9 @@ class TalkingVideoDataset:
             for level in range(4)
         )
         return dict(
-            pixel_values=to_pm1(frames[idxs]),
-            ref_pixels=to_pm1(frames[ref_idx]),
-            motion_pixels=to_pm1(motion),
+            pixel_values=_to_pm1(frames[idxs]),
+            ref_pixels=_to_pm1(frames[ref_idx]),
+            motion_pixels=_to_pm1(motion),
             audio_windows=audio_windows.astype(np.float32),
             face_emb=clip["face_emb"].astype(np.float32),
             face_region=clip["face_region"].astype(np.float32),

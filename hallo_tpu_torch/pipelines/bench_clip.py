@@ -1,12 +1,15 @@
 """Seconds per denoiser step and per clip of the inference path on the card.
 
     python -m hallo_tpu_torch.pipelines.bench_clip [--clips 3] [--steps 4]
-        [--sampler unipc] [--timestep-schedule logsnr] [--step-cache dynamic]
+        [--batch 2] [--sampler unipc] [--timestep-schedule logsnr]
+        [--step-cache dynamic]
         [--step-cache-threshold 0.1] [--cfg-cache-stride 2] [--cfg-tail 2]
 
 The full-width models (random weights from a seed, bf16) drive
 `FaceAnimatePipeline` at 512^2 over `--clips` clips of 16 frames (2 motion
-frames, CFG) with the given sampler, eval grid and caches (DDIM at 4 steps
+frames, CFG) for `--batch` identities at once (bench.py's
+HALLO_BENCH_BATCH: distinct references and embeddings, shared audio) with
+the given sampler, eval grid and caches (DDIM at 4 steps
 by default; the fast profile is `--sampler unipc --steps 10`, turbo
 `--steps 8`) on random inputs from a seed. The first run passes `timings`
 (a synchronisation at every phase and step); the first clip carries the
@@ -16,7 +19,8 @@ fetch. It prints the card's name and power limit, then one JSON line:
 every denoiser step's seconds and kind, their median after the first clip,
 every clip's VAE encode and decode seconds (the phases that launch K4) with
 their medians after the first clip, K1's, K2's and K4's launches a clip,
-the untimed run's seconds a clip and frames/s, and its peak memory. Times
+the untimed run's seconds a clip and frames/s (over the batch), and its
+peak memory. Times
 on one card spread between runs (PERF.md): compare two versions of the code
 only within one machine session, in turns.
 """
@@ -40,6 +44,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--clips", type=int, default=3)
     ap.add_argument("--steps", type=int, default=4, help="sampler steps (evals) per clip")
+    ap.add_argument("--batch", type=int, default=1, help="identities generated at once")
     ap.add_argument("--sampler", default="ddim", help="ddim, dpm++2m or unipc")
     ap.add_argument("--timestep-schedule", default="trailing", help="trailing or logsnr")
     ap.add_argument("--step-cache", default=None, help="off, uniform or dynamic")
@@ -60,7 +65,7 @@ def main() -> None:
         sampler=args.sampler, timestep_schedule=args.timestep_schedule,
         step_cache=args.step_cache, step_cache_threshold=args.step_cache_threshold,
         cfg_cache_stride=args.cfg_cache_stride, cfg_tail=args.cfg_tail)
-    inputs = dummy_clip_inputs(models, 512, 512, clip, batch=1, seed=0)
+    inputs = dummy_clip_inputs(models, 512, 512, clip, batch=args.batch, seed=0)
     inputs["audio_windows"] = np.concatenate([inputs["audio_windows"]] * args.clips)
     timings: dict = {}
     for table in (flash.LAUNCHES, temporal.LAUNCHES):
@@ -78,7 +83,8 @@ def main() -> None:
     steps = timings["denoise_step"]
     n = pipe.sampler.num_steps
     print(json.dumps(dict(
-        sampler=pipe.sampler.name, steps=n, timestep_schedule=args.timestep_schedule,
+        batch=args.batch, sampler=pipe.sampler.name, steps=n,
+        timestep_schedule=args.timestep_schedule,
         step_cache=pipe.step_cache, step_cache_threshold=args.step_cache_threshold,
         cfg_cache_stride=args.cfg_cache_stride, cfg_tail=args.cfg_tail,
         denoise_step_seconds=steps, step_kind=timings["step_kind"],
@@ -87,7 +93,7 @@ def main() -> None:
         vae_encode_median_after_first_clip=float(np.median(timings["vae_encode"][1:])),
         vae_decode_median_after_first_clip=float(np.median(timings["vae_decode"][1:])),
         **{f"{k}_launches_per_clip": v / args.clips for k, v in launches.items()},
-        untimed_seconds_per_clip=untimed, untimed_frames_per_s=clip / untimed,
+        untimed_seconds_per_clip=untimed, untimed_frames_per_s=args.batch * clip / untimed,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)), flush=True)
 
 

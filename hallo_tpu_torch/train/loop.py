@@ -1,0 +1,129 @@
+"""What both trainers share (scripts/train_stage{1,2}.py's common parts):
+the solver keys, the pretrained overlay, and the loop: resume from
+"latest", the NaN guard with its consecutive-skip abort, metrics.jsonl,
+checkpoint-N with rotation and the validation renders."""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional
+
+import torch
+
+from hallo_tpu_torch.convert.load_pretrained import load_pretrained
+from hallo_tpu_torch.train.state import AdamW, OptimizerConfig, TrainState
+from hallo_tpu_torch.train.step import step_generator
+from hallo_tpu_torch.utils import checkpoint as ckpt
+from hallo_tpu_torch.utils.profiling import MetricsLogger
+
+logger = logging.getLogger("hallo_tpu_torch.train")
+
+MAX_CONSECUTIVE_SKIPS = 25
+
+
+def compute_dtype(solver) -> torch.dtype:
+    """solver.mixed_precision: bf16 (fp16 maps to bf16, as in the JAX
+    trainers) or fp32."""
+    mp = str(solver.get("mixed_precision", "bf16") or "no").lower()
+    return torch.bfloat16 if mp in ("bf16", "fp16", "bfloat16") else torch.float32
+
+
+def optimizer_config(solver) -> OptimizerConfig:
+    """The YAML's solver keys (scripts/train_stage1.py:106-122)."""
+    return OptimizerConfig(
+        learning_rate=float(solver.learning_rate),
+        max_grad_norm=float(solver.max_grad_norm),
+        beta1=float(solver.get("adam_beta1", 0.9)),
+        beta2=float(solver.get("adam_beta2", 0.999)),
+        weight_decay=float(solver.get("adam_weight_decay", 1e-2)),
+        eps=float(solver.get("adam_epsilon", 1e-8)),
+        lr_warmup_steps=int(solver.get("lr_warmup_steps", 0)),
+        gradient_accumulation_steps=int(solver.get("gradient_accumulation_steps", 1)),
+        use_8bit_adam=bool(solver.get("use_8bit_adam", False)),
+    )
+
+
+def overlay_pretrained(models, cfg, keys: Mapping[str, str]) -> Dict[str, Any]:
+    """`load_pretrained` with the config's paths that exist (`keys`: config
+    key -> `load_pretrained` argument); an absent path is skipped with a log
+    line and its modules keep their random initialisation."""
+    paths = {}
+    for key, arg in keys.items():
+        path = str(cfg.get(key, "") or "")
+        if path and os.path.exists(path):
+            paths[arg] = path
+        elif path:
+            logger.info("%s=%s not found: skipped (random initialisation)", key, path)
+    return load_pretrained(models, **paths) if paths else {}
+
+
+def train_loop(
+    cfg,
+    device: torch.device,
+    trainable: Mapping[str, torch.nn.Parameter],
+    opt: AdamW,
+    step_fn: Callable,
+    batches: Iterator[Dict[str, Any]],
+    exp_dir: str,
+    validate: Optional[Callable[[int], Any]] = None,
+) -> TrainState:
+    """Train from step 0, or from the latest checkpoint-N when
+    `resume_from_checkpoint: latest`, to `solver.max_train_steps`; write
+    checkpoint-N every `checkpointing_steps` (keeping `total_limit`, 3 by
+    default) and call `validate(step)` every `val.validation_steps`."""
+    seed = int(cfg.seed)
+    start_step = 0
+    if str(cfg.get("resume_from_checkpoint", "")) == "latest" and ckpt.latest_step(exp_dir):
+        t0 = time.perf_counter()
+        state, start_step = ckpt.load_train_state(exp_dir, device=device)
+        state.write_to(trainable)  # the step expects the model to hold the masters
+        logger.info("resumed from checkpoint-%d in %.3f s", start_step,
+                    time.perf_counter() - t0)
+        # The data stream restarts with the process: replay the batches the
+        # earlier run took, so that the resumed run sees what an
+        # uninterrupted one would (each step's generator is a function of
+        # (seed, step) already).
+        for _ in range(start_step):
+            next(batches)
+    else:
+        state = TrainState.create(trainable, opt)
+
+    val = cfg.get("val") or {}
+    val_steps = int(val.get("validation_steps", 0) or 0) if validate is not None else 0
+    metrics = MetricsLogger(exp_dir)
+    log_every = int(cfg.get("log_every", 10))
+    t0 = time.time()
+    nan_skips = consecutive_skips = 0
+    td_window = 0.0  # data-loading time since the last log line
+    for step in range(start_step, int(cfg.solver.max_train_steps)):
+        t_data = time.time()
+        batch = next(batches)
+        td_window += time.time() - t_data
+        state, step_metrics = step_fn(state, batch, step_generator(seed, step, device))
+        if step_metrics["skipped"] > 0:
+            nan_skips += 1
+            consecutive_skips += 1
+            logger.warning("step %d: non-finite loss/grads, update skipped (%d total)",
+                           step, nan_skips)
+            if consecutive_skips >= MAX_CONSECUTIVE_SKIPS:
+                raise RuntimeError(f"{consecutive_skips} consecutive non-finite steps; "
+                                   "aborting (checkpoints keep the last finite state)")
+        else:
+            consecutive_skips = 0
+        if step % log_every == 0:
+            line = dict(loss=step_metrics["loss"], grad_norm=step_metrics["grad_norm"],
+                        td=round(td_window, 3), nan_skips=nan_skips,
+                        sec=round(time.time() - t0, 1))
+            td_window = 0.0
+            logger.info("%s", {"step": step, **line})
+            metrics.log(step, **line)
+        if (step + 1) % int(cfg.checkpointing_steps) == 0:
+            t_ckpt = time.perf_counter()
+            ckpt.save_train_state(exp_dir, step + 1, state, keep=int(cfg.get("total_limit", 3)))
+            logger.info("checkpoint-%d written in %.3f s", step + 1,
+                        time.perf_counter() - t_ckpt)
+        if val_steps and (step + 1) % val_steps == 0:
+            validate(step + 1)
+    return state

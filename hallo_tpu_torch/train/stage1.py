@@ -1,0 +1,137 @@
+"""Stage-1 training on one card: the ReferenceNet, the denoising UNet in 2D
+mode, the face locator and the image projection learn identity transfer
+from single frames (counterpart of scripts/train_stage1.py; reference
+scripts/train_stage1.py:289-793).
+
+    python -m hallo_tpu_torch.train.stage1 --config configs/train/stage1.yaml
+
+The config is the JAX trainer's YAML, read as there: `data.train_bs` frames
+of `data.train_width`^2 from the `FaceMaskDataset` clips of
+`data.meta_paths`; the solver keys (`use_8bit_adam` for the int8-moment
+AdamW, `gradient_checkpointing` for the denoiser's per-block
+recomputation); `uncond_ratio`, `noise_offset`, `snr_gamma`; the pretrained
+SD-1.5 UNet and VAE from `base_model_path` and `vae_model_path` where they
+exist; checkpoint-N every `checkpointing_steps`, resumed from "latest"; a
+validation still through the static pipeline every `val.validation_steps`;
+and the `final_{module}` exports that `train.stage2` reads through
+`stage1_ckpt_dir`. The exports hold the fp32 masters of the trained
+tensors. Not ported: the mesh and ZeRO (the trainer runs on one device).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+import torch
+
+from hallo_tpu_torch import config as cfglib
+from hallo_tpu_torch.config import SchedulerConfig, unet_config_from_yaml_kwargs
+from hallo_tpu_torch.data.datasets import FaceMaskDataset, batch_iterator
+from hallo_tpu_torch.pipelines.face_animate import HalloModels
+from hallo_tpu_torch.train.loop import (
+    compute_dtype, optimizer_config, overlay_pretrained, train_loop)
+from hallo_tpu_torch.train.state import TrainState, make_optimizer, stage1_trainable, unfreeze
+from hallo_tpu_torch.train.step import TrainConfig, make_train_step
+from hallo_tpu_torch.utils import checkpoint as ckpt
+
+logger = logging.getLogger("hallo_tpu_torch.train.stage1")
+
+EXPORTED = ("reference_net", "denoising_net", "face_locator", "image_proj")
+
+
+def stage1_models(cfg, device: torch.device) -> HalloModels:
+    """The stage-1 networks of `cfg` from its seed: the denoiser without
+    motion or audio modules (with `solver.gradient_checkpointing`'s
+    per-block recomputation), the ReferenceNet without inflated GroupNorm
+    (scripts/train_stage1.py:77-87)."""
+    solver = cfg.solver
+    unet_kwargs = (cfglib.to_container(cfg.unet_additional_kwargs)
+                   if "unet_additional_kwargs" in cfg else {})
+    den_cfg = unet_config_from_yaml_kwargs(
+        unet_kwargs, use_motion_module=False, use_audio_module=False,
+        remat=bool(solver.get("gradient_checkpointing", False)))
+    ref_cfg = unet_config_from_yaml_kwargs(
+        unet_kwargs, use_motion_module=False, use_audio_module=False,
+        use_inflated_groupnorm=False)
+    aux = {}
+    if str(cfg.get("aux_scale", "")) == "tiny":  # the tiny integration tests
+        from hallo_tpu_torch.utils.factory import TINY_AUX
+
+        aux = TINY_AUX
+    return HalloModels.create(ref_cfg, den_cfg, device=device, dtype=compute_dtype(solver),
+                              seed=int(cfg.seed), **aux)
+
+
+def train_stage1_process(cfg, device: torch.device = torch.device("cuda")) -> TrainState:
+    """Train for `solver.max_train_steps` steps (resuming from the latest
+    checkpoint when `resume_from_checkpoint: latest`), write checkpoint-N
+    every `checkpointing_steps`, log metrics.jsonl, render validation stills
+    every `val.validation_steps`, and export final_{module}/ for stage 2."""
+    device = torch.device(device)
+    exp_dir = os.path.join(str(cfg.output_dir), str(cfg.exp_name))
+    os.makedirs(exp_dir, exist_ok=True)
+    seed = int(cfg.seed)
+    models = stage1_models(cfg, device)
+    overlay_pretrained(models, cfg, {"base_model_path": "base_model_path",
+                                     "vae_model_path": "vae_model_path"})
+
+    trainable = unfreeze(models.modules(), stage1_trainable)
+    opt = make_optimizer(optimizer_config(cfg.solver))
+    step_fn = make_train_step(models, trainable, opt, TrainConfig(
+        stage=1,
+        uncond_img_ratio=float(cfg.uncond_ratio),
+        uncond_audio_ratio=0.0,
+        uncond_ia_ratio=0.0,
+        start_ratio=0.0,
+        noise_offset=float(cfg.noise_offset),
+        snr_gamma=float(cfg.snr_gamma),
+        scheduler=SchedulerConfig(beta_schedule="scaled_linear"),
+    ))
+
+    def dataset() -> FaceMaskDataset:
+        return FaceMaskDataset(list(cfg.data.meta_paths),
+                               sample_margin=int(cfg.data.sample_margin), seed=seed)
+
+    batches = batch_iterator(dataset(), int(cfg.data.train_bs))
+
+    def validate(step: int) -> None:
+        """Stills of the first two clips' references (reference
+        train_stage1.py:181-286, 728-744). The items come from a copy of the
+        dataset, so the training stream does not depend on when validations
+        ran (the JAX trainer draws them from the training dataset's
+        generator)."""
+        from hallo_tpu_torch.train.validation import log_validation_stage1
+
+        ds = dataset()
+        items = [ds[i] for i in range(min(2, len(ds)))]
+        log_validation_stage1(
+            models, exp_dir, step,
+            ref_images=[it["ref_pixels"] for it in items],
+            face_embs=[it["face_emb"] for it in items],
+            face_regions=[it["face_region"] for it in items],
+            num_inference_steps=int((cfg.get("val") or {}).get("num_inference_steps", 20)),
+            seed=seed)
+
+    state = train_loop(cfg, device, trainable, opt, step_fn, batches, exp_dir, validate)
+    # per-module exports for the stage hand-off (reference
+    # move_final_checkpoint, train_stage1.py:752-758)
+    for name in EXPORTED:
+        ckpt.save_params(os.path.join(exp_dir, f"final_{name}"), {name: getattr(models, name)},
+                         masters=state.params)
+    logger.info("stage 1 done")
+    return state
+
+
+def main() -> None:
+    logging.basicConfig(level=logging.INFO)
+    parser = argparse.ArgumentParser(description="Stage-1 training of the PyTorch port.")
+    parser.add_argument("--config", default="configs/train/stage1.yaml")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = parser.parse_args()
+    train_stage1_process(cfglib.load_config(args.config), device=torch.device(args.device))
+
+
+if __name__ == "__main__":
+    main()

@@ -17,7 +17,9 @@ steps fp32 master copies of those alone with optax's arithmetic:
 - with k > 1 accumulation steps, the running mean of k micro-batch
   gradients is applied every k-th call (`MultiSteps`' `use_grad_mean`).
 
-The masters, moments and accumulator are updated in place.
+The masters, moments and accumulator are updated in place. With
+`use_8bit_adam` the moments are stored as int8 blocks (`train/adam8bit.py`,
+`make_optimizer`).
 """
 
 from __future__ import annotations
@@ -39,6 +41,16 @@ class OptimizerConfig:
     # reference solver knobs (configs/train/stage2.yaml:23-37)
     lr_warmup_steps: int = 0
     gradient_accumulation_steps: int = 1
+    # bnb.optim.AdamW8bit's counterpart (train_stage2.py:613-622): int8
+    # block-quantised moments (train/adam8bit.py)
+    use_8bit_adam: bool = False
+
+
+def stage1_trainable(top_key: str, name: str) -> bool:
+    """Stage 1 trains the ReferenceNet, the denoiser (2D), the face locator
+    and the image projection (train_stage1.py:372-394); the VAE and the
+    audio projection stay frozen."""
+    return top_key in ("reference_net", "denoising_net", "face_locator", "image_proj")
 
 
 def stage2_trainable(top_key: str, name: str) -> bool:
@@ -124,16 +136,31 @@ class AdamW:
             gs = torch._foreach_div(gs, norm)
             torch._foreach_mul_(gs, cfg.max_grad_norm)
         count = state["count"]
-        lr = self.learning_rate(count)
-        c1 = 1.0 - cfg.beta1 ** (count + 1)
-        c2 = 1.0 - cfg.beta2 ** (count + 1)
+        self.adam(dict(zip(names, gs)), state, params, count + 1, self.learning_rate(count))
+        state["count"] = count + 1
+        if k > 1:
+            for acc in state["acc"].values():
+                acc.zero_()
+            state["mini_step"] = 0
+            state["gradient_step"] += 1
+
+    def adam(self, gs: Mapping[str, torch.Tensor], state: Dict[str, Any],
+             params: Dict[str, torch.Tensor], count: int, lr: float) -> None:
+        """Adam's moments, bias corrections at `count`, weight decay and the
+        step of `lr`, over the fp32 gradients `gs` (one per name of
+        `params`)."""
+        cfg = self.cfg
+        names = list(gs)
+        c1 = 1.0 - cfg.beta1 ** count
+        c2 = 1.0 - cfg.beta2 ** count
+        g = [gs[name] for name in names]
         ps = [params[name] for name in names]
         mus = [state["mu"][name] for name in names]
         nus = [state["nu"][name] for name in names]
         torch._foreach_mul_(mus, cfg.beta1)
-        torch._foreach_add_(mus, gs, alpha=1.0 - cfg.beta1)
+        torch._foreach_add_(mus, g, alpha=1.0 - cfg.beta1)
         torch._foreach_mul_(nus, cfg.beta2)
-        torch._foreach_addcmul_(nus, gs, gs, value=1.0 - cfg.beta2)
+        torch._foreach_addcmul_(nus, g, g, value=1.0 - cfg.beta2)
         den = torch._foreach_div(nus, c2)  # sqrt(nu / c2) + eps
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, cfg.eps)
@@ -143,12 +170,16 @@ class AdamW:
         torch._foreach_add_(u, ps, alpha=cfg.weight_decay)
         torch._foreach_mul_(u, -lr)
         torch._foreach_add_(ps, u)
-        state["count"] = count + 1
-        if k > 1:
-            for acc in state["acc"].values():
-                acc.zero_()
-            state["mini_step"] = 0
-            state["gradient_step"] += 1
+
+
+def make_optimizer(cfg: OptimizerConfig) -> AdamW:
+    """`AdamW`, or with `cfg.use_8bit_adam` its int8-moment form
+    (`adam8bit.AdamW8bit`; JAX's `make_optimizer`)."""
+    if cfg.use_8bit_adam:
+        from hallo_tpu_torch.train.adam8bit import AdamW8bit
+
+        return AdamW8bit(cfg)
+    return AdamW(cfg)
 
 
 @dataclasses.dataclass

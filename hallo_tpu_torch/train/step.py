@@ -1,17 +1,24 @@
-"""The stage-2 training step (counterpart of hallo_tpu/train/step.py).
+"""The training steps of both stages (counterpart of
+hallo_tpu/train/step.py).
 
-Reference semantics (scripts/train_stage2.py:698-930), as the JAX package
-has them:
+Reference semantics (scripts/train_stage1.py:559-759,
+scripts/train_stage2.py:698-930), as the JAX package has them:
 
 - the train scheduler: scaled_linear betas, zero-SNR rescale, v-prediction;
 - per-STEP (not per-sample) conditioning dropouts: one draw decides the
   image, audio and both dropouts, another the zero-motion-frame "start"
   dropout (`dropout_decisions`);
 - Min-SNR-gamma loss weights with the +1 shift under v-prediction;
-- the frozen modules (VAE, ReferenceNet, ImageProj, FaceLocator) run under
-  `torch.no_grad` (JAX's stop_gradient); the denoiser's spatial layers are
-  frozen too, but the gradient flows through them to the trainable motion
-  and audio modules before them;
+- stage 2: the frozen modules (VAE, ReferenceNet, ImageProj, FaceLocator)
+  run under `torch.no_grad` (JAX's stop_gradient); the denoiser's spatial
+  layers are frozen too, but the gradient flows through them to the
+  trainable motion and audio modules before them;
+- stage 1: one frame (F = 1), no motion frames, audio or masks; the
+  identity tokens, the ReferenceNet features (through the denoiser's K/V
+  concat) and the face conditioning keep their gradients; only the VAE
+  runs under `torch.no_grad`. Parameters that reach no output of the loss
+  (the ReferenceNet's layers after its last harvested feature) get zero
+  gradients, as under `jax.grad`;
 - the NaN guard: on a non-finite loss or gradient norm the masters and the
   optimizer state stay as they were and `metrics["skipped"]` is 1.
 
@@ -27,6 +34,7 @@ latents are (B, F, C, h, w) inside.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Mapping, Tuple
 
@@ -41,8 +49,11 @@ from hallo_tpu_torch.train.state import AdamW, TrainState, global_norm
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The stage-2 step's settings (JAX's TrainConfig for stage 2)."""
+    """The step's settings (JAX's TrainConfig). Stage 1 takes one dropout,
+    `uncond_img_ratio` (the YAML's `uncond_ratio`), with the other ratios
+    at 0."""
 
+    stage: int = 2
     uncond_img_ratio: float = 0.05
     uncond_audio_ratio: float = 0.05
     uncond_ia_ratio: float = 0.05
@@ -87,10 +98,11 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def make_loss_fn(
     models: HalloModels, cfg: TrainConfig = TrainConfig()
 ) -> Callable[[Dict[str, Any], torch.Generator], torch.Tensor]:
-    """The stage-2 loss, (batch, generator) -> scalar fp32 tensor, with the
-    autograd graph of whatever parameters of `models` require grad.
+    """The loss of `cfg.stage`, (batch, generator) -> scalar fp32 tensor,
+    with the autograd graph of whatever parameters of `models` require grad.
 
-    Batch (numpy arrays or tensors, JAX layouts): pixel_values
+    Stage-1 batch: pixel_values (B, 1, H, W, 3), ref_pixels, face_emb,
+    face_region. Stage-2 batch (numpy arrays or tensors, JAX layouts): pixel_values
     (B, F, H, W, 3), ref_pixels (B, H, W, 3), motion_pixels (B, M, H, W, 3),
     audio_windows (B, F, W, blocks, C), face_emb (B, E), face_region
     (B, H, W, 3), masks 4 x (full, face, lip) each (B, L_d). Optional
@@ -100,6 +112,9 @@ def make_loss_fn(
     alphas = torch.tensor(schedule.alphas_cumprod(cfg.scheduler), device=dev)
     pred_type = cfg.scheduler.prediction_type
     m = models
+    stage2 = cfg.stage == 2
+    # stage 2 keeps the stage-1 networks out of the graph (JAX's stop_gradient)
+    frozen = torch.no_grad if stage2 else contextlib.nullcontext
 
     def put(x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
@@ -138,12 +153,13 @@ def make_loss_fn(
         face_emb = put(batch["face_emb"])
         uncond_mask = drop_img.float().expand(b)
         ref_px = put(batch["ref_pixels"])[:, None]
-        if "motion_pixels" in batch:
+        if stage2 and "motion_pixels" in batch:
             ref_px = torch.cat([ref_px, unless(start, put(batch["motion_pixels"]))], dim=1)
         one_m = ref_px.shape[1]
         with torch.no_grad():
-            tokens = m.image_proj(unless(drop_img, face_emb))
             ref_lat = encode(ref_px.flatten(0, 1))
+        with frozen():
+            tokens = m.image_proj(unless(drop_img, face_emb))
             # the identity tokens tile over the ReferenceNet batch the way the
             # reference does (JAX's legacy_context_tiling: jnp.tile, not a
             # per-sample repeat), misaligned with the frames
@@ -159,11 +175,11 @@ def make_loss_fn(
                         if one_m > 1 else None)
 
         audio_tokens = None
-        if "audio_windows" in batch:
+        if stage2 and "audio_windows" in batch:
             audio = put(batch["audio_windows"])
             audio_tokens = m.audio_proj(unless(drop_audio, audio))
         masks = None
-        if "masks" in batch:
+        if stage2 and "masks" in batch:
             masks = tuple(tuple(put(x).repeat_interleave(f, dim=0) for x in lvl)
                           for lvl in batch["masks"])
 
@@ -207,7 +223,9 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Dict[str, Any], gen: torch.Generator):
         loss = loss_fn(batch, gen)
-        grads = dict(zip(names, torch.autograd.grad(loss, params)))
+        # a parameter that reaches no output of the loss gets zeros (jax.grad)
+        grads = {name: torch.zeros_like(p) if g is None else g for name, p, g in zip(
+            names, params, torch.autograd.grad(loss, params, allow_unused=True))}
         grad_norm = global_norm(grads.values())
         loss_v, norm_v = loss.item(), grad_norm.item()
         finite = bool(np.isfinite(loss_v) and np.isfinite(norm_v))

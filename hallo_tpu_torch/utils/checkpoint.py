@@ -6,7 +6,9 @@ hallo_tpu/utils/checkpoint.py, on `torch.save` instead of orbax).
   (reference `accelerator.save_state` + util.py:120-151's rotation);
 - `load_train_state` / `latest_step`: resume from "latest"
   (reference util.py:784-819);
-- `save_params`: per-module weight exports (`final_net`).
+- `save_params` / `load_params`: per-module weight exports (stage 2's
+  `final_net`, stage 1's `final_{module}`) and their read-back. The port
+  reads its own export format; the JAX package's orbax exports need JAX.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import os
 import re
 import shutil
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -68,9 +70,36 @@ def load_train_state(root: str, step: Optional[int] = None,
     return TrainState.from_state_dict(sd), step
 
 
-def save_params(path: str, modules: Dict[str, torch.nn.Module]) -> str:
-    """Export each module's state_dict as path/{name}.pt."""
+def save_params(path: str, modules: Dict[str, torch.nn.Module],
+                masters: Optional[Mapping[str, torch.Tensor]] = None) -> str:
+    """Export each module's state_dict as path/{name}.pt; a tensor that
+    `masters` holds under "name.key" (a `TrainState`'s fp32 masters) is
+    written in its place."""
     os.makedirs(path, exist_ok=True)
+    masters = masters or {}
     for name, module in modules.items():
-        torch.save(module.state_dict(), os.path.join(path, f"{name}.pt"))
+        sd = {k: masters.get(f"{name}.{k}", v) for k, v in module.state_dict().items()}
+        torch.save(sd, os.path.join(path, f"{name}.pt"))
     return path
+
+
+@torch.no_grad()
+def load_params(path: str, modules: Dict[str, torch.nn.Module],
+                strict: bool = True) -> Dict[str, List[str]]:
+    """Read path/{name}.pt into each module (a `save_params` export), in the
+    module's dtype and on its device: an export of the module's own dtype
+    reads back bit for bit. A key the module lacks raises. With
+    `strict=False` a module's tensors that the export lacks keep their
+    values (stage 2's denoiser, whose motion and audio modules a stage-1
+    export does not hold; the reference loads it with strict=False).
+    Returns each module's kept (missing) keys."""
+    missing = {}
+    for name, module in modules.items():
+        sd = torch.load(os.path.join(path, f"{name}.pt"), map_location="cpu",
+                        weights_only=True)
+        result = module.load_state_dict(sd, strict=strict)
+        if result.unexpected_keys:
+            raise RuntimeError(f"{path}/{name}.pt: keys {name} does not hold: "
+                               f"{result.unexpected_keys[:5]}")
+        missing[name] = list(result.missing_keys)
+    return missing

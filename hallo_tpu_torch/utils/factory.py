@@ -6,7 +6,7 @@ card unless the caller asks for another device."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -79,18 +79,24 @@ def build_models(
     dtype: torch.dtype = torch.float32,
     seed: int = 0,
     remat: bool = False,
+    unet_overrides: Optional[Dict[str, Any]] = None,
 ) -> HalloModels:
     """Random-initialised models from `seed`, built on `device` in `dtype`.
     "full" is the production configuration; "tiny" the test widths. `remat`:
-    per-block gradient checkpointing of the denoiser in training."""
+    per-block gradient checkpointing of the denoiser in training.
+    `unet_overrides` apply to both UNets' configs, as the JAX factory's do:
+    the stage-1 (2D) models are `use_motion_module=False,
+    use_audio_module=False` (plus `use_inflated_groupnorm=False` for the
+    static bench)."""
     if scale == "tiny":
-        kw, aux = TINY_UNET_KW, TINY_AUX
+        kw, aux = dict(TINY_UNET_KW), TINY_AUX
     elif scale == "full":
         kw, aux = {}, {}
     else:
         raise ValueError(scale)
+    kw.update(unet_overrides or {})
     return HalloModels.create(
-        reference_unet_config(**kw), denoising_unet_config(remat=remat, **kw),
+        reference_unet_config(**kw), denoising_unet_config(**{"remat": remat, **kw}),
         device=device, dtype=dtype, seed=seed, **aux,
     )
 

@@ -1,6 +1,7 @@
 """hallo_tpu_torch imports torch and never the JAX package, jax or triton:
 in a fresh interpreter, importing every module of the package and running
-the tiny slice, the tiny audio path, one tiny stage-2 train step, the host
+the tiny slice, the tiny audio path, one tiny stage-2 train step, a tiny
+static image, one tiny stage-1 step with the 8-bit AdamW, the host
 preprocessing, the ONNX executor with the vocal separator, the checkpoint
 loader and the preflight on the CPU leave none of them in sys.modules, and
 no source line of the port or of chip_smoke.py imports hallo_tpu. Also: the
@@ -53,6 +54,22 @@ batch = dict(
     masks=tuple(tuple(np.ones((1, (8 >> d) ** 2)) for _ in range(3)) for d in range(4)))
 state, metrics = step(TrainState.create(trainable, opt), batch, step_generator(0, 0, "cpu"))
 assert state.step == 1 and np.isfinite(metrics["loss"])
+from hallo_tpu_torch.pipelines.static import StaticPipeline
+from hallo_tpu_torch.train.state import OptimizerConfig, make_optimizer, stage1_trainable
+from hallo_tpu_torch.train.step import TrainConfig
+models2d = build_models("tiny", device="cpu",
+                        unet_overrides=dict(use_motion_module=False, use_audio_module=False))
+still = StaticPipeline(models2d, num_inference_steps=1)(
+    rng.uniform(-1, 1, (1, 64, 64, 3)), rng.normal(size=(1, 16)), np.ones((1, 64, 64, 3)))
+assert still.shape == (1, 64, 64, 3) and np.isfinite(still).all()
+trainable = unfreeze(models2d.modules(), stage1_trainable)
+opt = make_optimizer(OptimizerConfig(use_8bit_adam=True))
+step = make_train_step(models2d, trainable, opt, TrainConfig(stage=1))
+batch1 = dict(pixel_values=rng.uniform(-1, 1, (1, 1, 64, 64, 3)),
+              ref_pixels=rng.uniform(-1, 1, (1, 64, 64, 3)), face_emb=rng.normal(size=(1, 16)),
+              face_region=np.ones((1, 64, 64, 3)))
+state, metrics = step(TrainState.create(trainable, opt), batch1, step_generator(0, 0, "cpu"))
+assert state.step == 1 and np.isfinite(metrics["loss"]) and "q8" in state.opt_state
 import os, tempfile
 from hallo_tpu_torch.convert.onnx_io import OnnxNode, save_onnx
 from hallo_tpu_torch.convert.load_pretrained import load_pretrained
@@ -160,12 +177,14 @@ def test_entry_points_default_to_the_card():
     from hallo_tpu_torch.data.landmark_torch import TorchFaceLandmarker
     from hallo_tpu_torch.data.mdx_separator import MdxSeparator
     from hallo_tpu_torch.pipelines.face_animate import HalloModels
+    from hallo_tpu_torch.train.stage1 import train_stage1_process
+    from hallo_tpu_torch.train.stage2 import train_stage2_process
     from hallo_tpu_torch.utils.factory import build_models, build_wav2vec
 
     for fn in (build_models, build_wav2vec, HalloModels.create, AudioProcessor.__init__,
                OnnxExecutor.__init__, FaceAnalyzer.__init__, ImageProcessor.__init__,
                ImageProcessorForDataProcessing.__init__, ScrfdTorch.__init__,
                ArcFaceTorch.__init__, InsightTorchApp.__init__, TorchFaceLandmarker.__init__,
-               MdxSeparator.__init__):
+               MdxSeparator.__init__, train_stage1_process, train_stage2_process):
         assert inspect.signature(fn).parameters["device"].default == torch.device("cuda"), fn
     assert inference.build_parser().get_default("device") == "cuda"

@@ -227,13 +227,14 @@ def test_sm90_d512_and_winograd_kernels_are_bitwise_repeatable(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("lse", [False, True])
 @pytest.mark.parametrize("b,lq,lk,c", [(2, 4096, 32, 320), (2, 4096, 4, 320),
-                                       (2, 4096, 8192, 320)])
+                                       (2, 4096, 8192, 320), (8, 4096, 4096, 320)])
 def test_sm90_flash_kernel_repeats_bit_for_bit_over_300_launches(cuda_device, b, lq, lk, c,
                                                                  lse):
     """K1's ring (TMA loads behind mbarrier parity waits, a producer warp
     ahead of the consumers): 300 launches at the audio attention's Lk 32,
-    the identity attention's Lk 4 and level 0's self-attention over the
-    reference concat (Lk 8192), with and without the LSE output, give the
+    the identity attention's Lk 4, level 0's self-attention over the
+    reference concat (Lk 8192) and the stage-1 ReferenceNet's self-attention
+    at its batch of 8 (Lq = Lk), with and without the LSE output, give the
     first launch's output (and LSE) bit for bit."""
     gen = torch.Generator(device=cuda_device).manual_seed(40 + lk)
     q, k, v = (_bf16(gen, cuda_device, b, n, c) for n in (lq, lk, lk))

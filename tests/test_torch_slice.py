@@ -103,6 +103,38 @@ def test_slice_live_two_clips_matches_jax():
     assert diff.mean() <= 1e-3, diff.mean()
 
 
+def test_slice_two_identities_match_jax():
+    """Long-form with several identities (BASELINE.json config 4): batch 2
+    with distinct reference images, face embeddings, regions and masks and
+    shared audio, over 2 clips, against the JAX pipeline at the same noise
+    (every bias perturbed, every zero-initialised weight drawn, so that the
+    motion-frame carry reaches clip 2). The tolerance is the live test's."""
+    from tests.test_torch_profiles import wake
+
+    jm = jax_build_models("tiny", init_key=jax.random.PRNGKey(0), height=H, width=H,
+                          clip_length=F, n_motion_frames=M)
+    params = {k: wake(perturb(v, seed=i), seed=i)
+              for i, (k, v) in enumerate(sorted(jm.params.items()))}
+    jm.params = params
+    rng = np.random.default_rng(8)
+    hl = H // 8
+    call = dict(
+        inputs(2), ref_image=rng.uniform(-1, 1, size=(2, H, H, 3)).astype(np.float32),
+        face_emb=rng.normal(size=(2, 16)).astype(np.float32),
+        face_region=(rng.uniform(size=(2, H, H, 3)) > 0.4).astype(np.float32),
+        masks=tuple(tuple((rng.uniform(size=(2, (hl // 2**d) ** 2)) > 0.3).astype(np.float32)
+                          for _ in range(3)) for d in range(4)))
+    jpipe = JaxPipeline(jm, SchedulerConfig(), num_inference_steps=2, guidance_scale=3.5,
+                        clip_length=F, n_motion_frames=M)
+    want = jpipe(**call, seed=5)
+    got = port_pipeline(params)(**call, latents=jax_noise(5, 2, b=2))
+    assert got.shape == want.shape == (2, 2 * F, H, H, 3)
+    diff = np.abs(got - want)
+    assert diff.max() <= 2 / 255 + 1e-6, diff.max()
+    assert diff.mean() <= 1e-3, diff.mean()
+    assert np.abs(got[0] - got[1]).mean() > 1e-2  # two identities, two videos
+
+
 def test_window_audio_embeddings_matches_jax():
     emb = np.random.default_rng(3).normal(size=(7, 2, 4)).astype(np.float32)
     for margin in (0, 2):

@@ -422,24 +422,70 @@ def test_trainer_two_steps_then_resume_is_bitwise_four_steps(tmp_path):
     assert os.path.isdir(os.path.join(exp, "checkpoint-4"))
 
 
-def test_trainer_raises_on_what_is_not_ported(tmp_path):
-    """Existing checkpoint paths, the 8-bit AdamW and validation renders
-    raise NotImplementedError with a message; the default device is the
-    card, so without one the call raises instead of running on the CPU."""
+@pytest.mark.parametrize("case", ["pretrained", "stage1_ckpt_dir", "use_8bit_adam",
+                                  "validation"])
+def test_trainer_takes_what_stage2_yaml_can_ask_for(tmp_path, case):
+    """One step of `train_stage2_process` with each of what it once refused:
+    pretrained files that exist (SD-1.5, the VAE, AnimateDiff in the
+    reference layout, tests/test_torch_load_pretrained.py's tiny files),
+    a stage-1 export directory, the 8-bit AdamW, a validation render. The
+    frozen weights in final_net/ are the files' bit for bit (the step's
+    one-step warm-up moves no trainable weight either)."""
+    from hallo_tpu_torch.utils.checkpoint import save_params
+    from hallo_tpu_torch.utils.video import read_frames
+
+    from tests.test_torch_load_pretrained import write_layout
+
     root = str(tmp_path)
     meta = _write_dataset(root, n_clips=1)
-    for key, value in (("base_model_path", root), ("stage1_ckpt_dir", root),
-                       ("val", {"validation_steps": 1}), ("solver", {"use_8bit_adam": True})):
-        cfg = _trainer_cfg(root, meta, "x", 2)
-        if isinstance(value, dict) and key in cfg:
-            cfg[key].update(value)
-        else:
-            cfg[key] = value
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train_stage2_process(cfg, device="cpu")
+    cfg = _trainer_cfg(root, meta, "x", 1)
+    exp = os.path.join(root, "exp", "x")
+    want = {}
+    if case == "pretrained":
+        paths, written = write_layout(os.path.join(root, "pm"), build_models("tiny", device="cpu"))
+        cfg.update(base_model_path=paths["base"], vae_model_path=paths["vae"],
+                   mm_path=paths["motion"])
+        want = {"reference_net": written["sd15"],
+                "denoising_net": {k: written["sd15"][k] for k in ("conv_in.weight",
+                                                                  "conv_out.bias")}}
+        want["denoising_net"].update(written["mm"])
+        for k in [k for k in want["denoising_net"] if k.endswith("pos_encoder.pe")]:
+            del want["denoising_net"][k]  # a buffer the port recomputes
+    elif case == "stage1_ckpt_dir":
+        stage1 = build_models("tiny", device="cpu", seed=5, unet_overrides=dict(
+            use_motion_module=False, use_audio_module=False))
+        for name in ("reference_net", "denoising_net", "face_locator", "image_proj"):
+            module = getattr(stage1, name)
+            save_params(os.path.join(root, "s1", f"final_{name}"), {name: module})
+            want[name] = module.state_dict()
+        cfg["stage1_ckpt_dir"] = os.path.join(root, "s1")
+    elif case == "use_8bit_adam":
+        cfg.solver.use_8bit_adam = True
+    else:
+        cfg.val.update(validation_steps=1, num_inference_steps=1)
+    state = train_stage2_process(cfg, device="cpu")
+    assert state.step == 1
+    line = json.loads(open(os.path.join(exp, "metrics.jsonl")).readline())
+    assert np.isfinite(line["loss"]) and np.isfinite(line["grad_norm"])
+    for name, tensors in want.items():
+        got = torch.load(os.path.join(exp, "final_net", f"{name}.pt"))
+        assert tensors and all(torch.equal(got[k], v) for k, v in tensors.items()), name
+    if case == "use_8bit_adam":
+        q8 = state.opt_state["q8"]
+        assert q8["mu_q"].dtype == torch.int8 and q8["mu_q"].any()
+        assert state.opt_state["count"] == 1 and len(q8["rows"]) > 100
+    if case == "validation":
+        frames = read_frames(os.path.join(exp, "validation", "step1.mp4"))
+        assert len(frames) == F and frames[0].shape == (64, 64, 3)
+
+
+def test_trainer_defaults_to_the_card(tmp_path):
+    """The default device is the card: without one the call raises instead
+    of running on the CPU."""
+    meta = _write_dataset(str(tmp_path), n_clips=1)
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
-            train_stage2_process(_trainer_cfg(root, meta, "x", 1))
+            train_stage2_process(_trainer_cfg(str(tmp_path), meta, "x", 1))
 
 
 def test_dataset_copy_matches_jax(tmp_path):
