@@ -83,30 +83,47 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    with its LSE, K5's two passes, K2, K4); then one step's loss and
    trainable gradient on the card are held against the same weights on
    the CPU in fp32 at 64x64, with a planted backward fault that the check
-   must see;
-7. the trainer: `train_stage2_process` on configs/train/stage2.yaml (batch
-   cut to 1) with a synthetic 512^2 clip in `data/datasets.py`'s .npz
-   format: 2 steps that write checkpoint-2, metrics.jsonl and final_net/,
-   then a resume from checkpoint-2 for a third step;
-8. static: `StaticPipeline` on the full-width 2D models (bf16), one 512^2
+   must see; then the same weights in a denoiser with nested per-layer
+   checkpointing (`remat_inner`, the motion feed-forward in 4 chunks): one
+   batch's loss and each trainable group's gradient against the per-block
+   run, with a planted replay fault (the feed-forward's last chunk
+   replayed from zeros), then 1 + 3 steps (seconds, peak memory, which must
+   be lower, launches a step);
+7. dataset: the dataset builder, `python -m hallo_tpu_torch.data_preprocess`
+   steps 1 and 2 on the card (no face model files: the Haar path; the
+   full-width wav2vec2 with random weights from its seed, K3 counted), on
+   two synthetic 5-s 512^2 videos of 1.jpg with 1.wav tiled (muxed where
+   an ffmpeg binary exists, else placed beside the clips), then
+   `extract_meta_info` at stages 1 and 2 (seconds a video for each step);
+   one video's clip held against the same builder on the CPU in fp32
+   (frames, region, masks bit for bit, the audio embedding at AUDIO_RTOL),
+   with a planted fault (one wav2vec2 weight x1.01 on the card only);
+8. the trainer: `train_stage2_process` on configs/train/stage2.yaml as
+   shipped (train_bs 4, per-block and per-layer checkpointing) over phase
+   7's clips, read through the C++ prefetcher: 2 steps that write
+   checkpoint-2, metrics.jsonl and final_net/ (peak memory, seconds a step,
+   the data wait a step, K1's, K5's, K2's and K4's launches a step; an
+   out-of-memory logs the allocator's summary and fails), then a resume
+   from checkpoint-2 for a third step;
+9. static: `StaticPipeline` on the full-width 2D models (bf16), one 512^2
    image with 40-step DDIM (seconds, peak memory, K1's and K4's launches),
    then against the CPU in fp32 at 64x64 with a planted sampler fault;
-9. stage 1: the stage-1 step at configs/train/stage1.yaml's full width (B
+10. stage 1: the stage-1 step at configs/train/stage1.yaml's full width (B
    8 single frames at 512^2, no checkpointing, bf16, AdamW in fp32; on an
    out-of-memory the peak is logged and checkpointing, then smaller
    batches, are tried): 1 + 3 steps (seconds, peak memory, K1's, K5's and
    K4's launches a step), then one step's loss and each module's gradient
    in fp32 on the card against the CPU at 64x64, with K5's dK/dV zeroed as
    the planted fault; then the synthetic `pretrained_models/` files that
-   phases 10 and 12 read are written, once;
-10. the stage-1 trainer: `train_stage1_process` on stage1.yaml (at the
-   batch phase 9 ran, the 8-bit AdamW) over a synthetic 40-frame 512^2 clip
+   phases 11 and 13 read are written, once;
+11. the stage-1 trainer: `train_stage1_process` on stage1.yaml (at the
+   batch phase 10 ran, the 8-bit AdamW) over a synthetic 40-frame 512^2 clip
    and the synthetic SD-1.5 UNet and VAE: 2 steps and checkpoint-2 (its
    write and read timed), a resume to step 4 with a validation still and
    the four exports, bit for bit against an unbroken 4-step run; then
    `train_stage2_process` with `stage1_ckpt_dir` there holds the exports
    bit for bit (in bf16) and takes a finite step;
-11. onnx: the port's ONNX executor (`convert/onnx_torch.py`) on the card
+12. onnx: the port's ONNX executor (`convert/onnx_torch.py`) on the card
    against itself on the CPU in fp32, on seeded graphs of the four models'
    published architectures at their published depths and widths
    (`convert/synthetic.py`): SCRFD-10G at det size 640 (its detections on
@@ -116,7 +133,7 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    seconds per call in fp32 and with TF32 (which must fail the check); the
    face analyzer with the three face files, the separator with the U-Net
    against the CPU, and an identity MDX graph giving back 1.wav;
-12. cli: the product, `hallo_tpu_torch.inference.inference_process`, at full
+13. cli: the product, `hallo_tpu_torch.inference.inference_process`, at full
    width on 1.jpg and 1.wav (turbo, bf16, 512^2, no --allow-partial) over
    synthetic fp16 checkpoint files in the reference's `pretrained_models/`
    layout (the inventories' keys and shapes, about 7.8 GB, written under
@@ -152,7 +169,7 @@ import torch.nn.functional as F
 from safetensors.torch import load_file, save_file
 
 from hallo_tpu_torch import config as cfglib
-from hallo_tpu_torch import inference
+from hallo_tpu_torch import data_preprocess, extract_meta_info, inference
 from hallo_tpu_torch.config import SchedulerConfig, load_config, load_yaml
 from hallo_tpu_torch.convert import onnx_torch, synthetic
 from hallo_tpu_torch.convert.onnx_torch import OnnxExecutor
@@ -162,6 +179,7 @@ from hallo_tpu_torch.data.image_processor import load_image_rgb
 from hallo_tpu_torch.data.insight_torch import ScrfdTorch, norm_crop
 from hallo_tpu_torch.data.mdx_separator import MdxSeparator
 from hallo_tpu_torch.diffusion import cache, schedule
+from hallo_tpu_torch.models import layers
 from hallo_tpu_torch.models import wav2vec as wav2vec_module
 from hallo_tpu_torch.ops import _build, flash, layout, temporal, winograd
 from hallo_tpu_torch.ops.attention import attention_reference
@@ -181,7 +199,7 @@ from hallo_tpu_torch.train.step import (
     TrainConfig, make_loss_fn, make_train_step, step_generator)
 from hallo_tpu_torch.utils import checkpoint as ckpt
 from hallo_tpu_torch.utils.factory import build_models, build_wav2vec, dummy_clip_inputs
-from hallo_tpu_torch.utils.video import read_frames
+from hallo_tpu_torch.utils.video import read_frames, write_video
 
 # A kernel against its plain version computed in fp32 from the same inputs
 # (unit-normal q, k, v). The kernels round q, k, v (fp32 I/O: on their way
@@ -251,6 +269,31 @@ AUDIO_FAULT_SCALE = 1.03
 # on an H100, so the limit is 2x the gradient's reading. The planted
 # backward fault (K5's dQ zeroed) read 0.119 there and must exceed it.
 TRAIN_RTOL = 5e-2
+
+# The stage-2 step with nested per-layer checkpointing (`remat_inner`)
+# against the per-block checkpoint alone, on the card at 512^2, B 1, 14 + 2
+# frames, the same weights and batch: relative error of the loss and
+# relative L2 error of each trainable group's flattened gradient (the
+# motion feed-forwards, the rest of the motion modules, the audio modules,
+# the audio projection). The replays
+# run the same kernels on the same inputs; what differs is the motion
+# feed-forward's chunks, whose products over a quarter of the sites may
+# round otherwise in bf16, and that rounding is carried through the whole
+# backward as the card's bf16 is against the CPU's fp32: the limit is
+# TRAIN_RTOL's. The planted fault, the feed-forward's last chunk replayed
+# from zeros, must exceed it for the motion feed-forwards.
+REMAT_INNER_RTOL = TRAIN_RTOL
+
+# The dataset phase: two synthetic videos of DATASET_FRAMES frames at
+# 512^2 (5 s at 25 fps) from 1.jpg, built on the card and, for one video,
+# on the CPU in fp32: frames, face region and masks bit for bit, the audio
+# embedding within AUDIO_RTOL. The planted fault scales the last encoder
+# layer's LayerNorm weight by DATASET_FAULT_SCALE on the card only: it
+# scales that layer's output, one of the 12 stacked states, by as much
+# (about 1e-2 / sqrt(12) = 2.9e-3 relative), so it must exceed AUDIO_RTOL.
+DATASET_FRAMES = 125
+DATASET_FAULT_SCALE = 1.01
+DATASET_FAULT_KEY = "encoder.layers.11.final_layer_norm.weight"
 
 # The fast profile and a static CFG-cache plan (UniPC at 12 steps, stride 2,
 # tail 2) on the card (bf16, kernels) against the same weights on the CPU
@@ -1519,6 +1562,35 @@ def loss_and_grads(models: HalloModels, batch: dict) -> tuple:
     return loss.item(), torch.cat([g.float().flatten().cpu() for g in grads])
 
 
+def train_steps(models: HalloModels, dev, batch: dict) -> dict:
+    """One warm-up and 3 timed stage-2 steps (stage2.yaml's AdamW) from the
+    models' weights on `batch`: the state and the step function, seconds a
+    step, the peak (warm-up included), the launches a step. The models'
+    trainable weights move."""
+    trainable = unfreeze(models.modules(), stage2_trainable)
+    opt = AdamW(OptimizerConfig(learning_rate=1e-5, lr_warmup_steps=1))
+    state = TrainState.create(trainable, opt)
+    step = make_train_step(models, trainable, opt, TrainConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for i in range(4):
+        if i == 1:
+            reset_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, step_generator(0, i, dev))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        log(f"train {'warm-up ' if i == 0 else ''}step {i}: {seconds[-1]:.4f} s, loss "
+            f"{m['loss']:.5f} grad_norm {m['grad_norm']:.5f} skipped {m['skipped']:.0f}")
+        if m["skipped"] or not np.isfinite(m["loss"]):
+            raise RuntimeError(f"train step {i}: non-finite loss or gradients ({m})")
+    counts = launch_counts()
+    return dict(state=state, step=step, seconds=seconds[1:],
+                peak=torch.cuda.max_memory_allocated(), counts=counts,
+                per_step={k: v / 3 for k, v in counts.items()})
+
+
 def phase_train(models: HalloModels, dev, scale: str = "full", profile_out: str = "") -> dict:
     """Stage-2 train steps on the full-width models at 512^2, B 1, 14 + 2
     frames, bf16, per-block checkpointing (with `profile_out`, one more step
@@ -1533,42 +1605,19 @@ def phase_train(models: HalloModels, dev, scale: str = "full", profile_out: str 
     n_train = sum(p.numel() for p in trainable.values())
     log(f"training: {len(trainable)} trainable tensors, {n_train} parameters; "
         f"{sum(p.numel() for p in frozen.values())} frozen")
-    opt = AdamW(OptimizerConfig(learning_rate=1e-5, lr_warmup_steps=1))  # stage2.yaml
-    state = TrainState.create(trainable, opt)
-    masters0 = {k: v.cpu() for k, v in state.params.items()}
-    step = make_train_step(models, trainable, opt, TrainConfig())
+    masters0 = {k: p.detach().float().cpu() for k, p in trainable.items()}
     size, frames, motion = 512, 14, 2
     batch = synthetic_batch(models, 1, size, frames, motion, seed=0, fixed=False)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state, m = step(state, batch, step_generator(0, 0, dev))
-    torch.cuda.synchronize()
-    log(f"train warm-up step: {time.perf_counter() - t0:.3f} s, loss {m['loss']:.5f} "
-        f"grad_norm {m['grad_norm']:.5f} skipped {m['skipped']:.0f}")
-    reset_counts()
-    seconds = []
-    for i in range(1, 4):
-        t0 = time.perf_counter()
-        state, m = step(state, batch, step_generator(0, i, dev))
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        log(f"train step {i}: {seconds[-1]:.4f} s, loss {m['loss']:.5f} "
-            f"grad_norm {m['grad_norm']:.5f} skipped {m['skipped']:.0f}")
-        if m["skipped"] or not np.isfinite(m["loss"]):
-            raise RuntimeError(f"train step {i}: non-finite loss or gradients ({m})")
-    counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    run = train_steps(models, dev, batch)
+    state, step, seconds, peak = run["state"], run["step"], run["seconds"], run["peak"]
     log(f"train at {size}^2, B 1, {frames} + {motion} frames, bf16, per-block checkpointing: "
         f"seconds per step {[round(x, 4) for x in seconds]}, median "
         f"{float(np.median(seconds)):.4f}")
     log(f"train peak device memory (warm-up included): {peak / 2**30:.3f} GiB")
-    per_step = {k: v / len(seconds) for k, v in counts.items()}
-    log(f"kernel launches per train step: {per_step}")
+    log(f"kernel launches per train step: {run['per_step']}")
     for name in ("flash_fwd_packed", "flash_bwd_dkv", "flash_bwd_dq", "temporal_attn",
                  "flash_fwd"):
-        if per_step[name] <= 0:
+        if run["per_step"][name] <= 0:
             raise RuntimeError(f"kernel {name} was not launched by the train step")
 
     unchanged = [k for k, v in state.params.items() if torch.equal(v.cpu(), masters0[k])]
@@ -1587,7 +1636,8 @@ def phase_train(models: HalloModels, dev, scale: str = "full", profile_out: str 
         busy = sum(r[0] for r in rows)
         log(f"K5 in the profiled train step: {k5:.1f} ms, {100 * k5 / busy:.1f}% of device "
             f"time, {100 * k5 / wall:.1f}% of wall")
-    del state, opt, step, frozen, masters0
+    counts = run["counts"]
+    del run, state, step, frozen, masters0
     torch.cuda.empty_cache()
 
     # The card against the CPU: the same weights, one step's loss and
@@ -1625,17 +1675,284 @@ def phase_train(models: HalloModels, dev, scale: str = "full", profile_out: str 
                 grad_err=grad_err, fault_err=fault_err)
 
 
-def phase_trainer(dev) -> dict:
+def trainable_group(name: str) -> str:
+    """The group of a stage-2 trainable tensor: the motion modules'
+    feed-forwards, the rest of the motion modules, the audio modules, the
+    audio projection."""
+    if ".motion_modules." in name:
+        return "motion_ff" if ".ff." in name else "motion_modules"
+    if ".audio_modules." in name:
+        return "audio_modules"
+    return name.split(".", 1)[0]
+
+
+def grouped_loss_and_grads(models: HalloModels, batch: dict, before_backward=None) -> tuple:
+    """One stage-2 loss (no dropouts) and the fp32 gradients of the
+    trainable tensors, flattened by `trainable_group`, on the host;
+    `before_backward()` runs between the forward and the backward."""
+    trainable = unfreeze(models.modules(), stage2_trainable)
+    cfg = TrainConfig(uncond_img_ratio=0.0, uncond_audio_ratio=0.0, uncond_ia_ratio=0.0,
+                      start_ratio=0.0)
+    loss = make_loss_fn(models, cfg)(batch, torch.Generator(device=models.device))
+    if before_backward is not None:
+        before_backward()
+    grads = torch.autograd.grad(loss, list(trainable.values()))
+    groups: dict = {}
+    for name, g in zip(trainable, grads):
+        groups.setdefault(trainable_group(name), []).append(g.float().flatten().cpu())
+    return loss.item(), {k: torch.cat(v) for k, v in groups.items()}
+
+
+@contextlib.contextmanager
+def ff_replay_fault():
+    """The planted fault of the nested checkpoint: FeedForward's chunks, each
+    under its own checkpoint, with the last chunk computed from zeros once
+    the yielded `replay()` has been called (between the forward and the
+    backward, so only the replays see it). The chunk's input is scaled by
+    1.0 or 0.0, so the replay records the forward's ops."""
+    real = layers.FeedForward.forward
+    replaying = []
+
+    def forward(self, x):
+        n = self.chunks
+        if n <= 1 or x.ndim < 2 or x.shape[-2] % n:
+            return real(self, x)
+
+        def body(part, last):
+            return self.ff(part * (0.0 if last and replaying else 1.0))
+
+        return torch.cat([layers.checkpoint(body, part, i == n - 1, use_reentrant=False)
+                          for i, part in enumerate(x.chunk(n, dim=-2))], dim=-2)
+
+    layers.FeedForward.forward = forward
+    try:
+        yield lambda: replaying.append(True)
+    finally:
+        layers.FeedForward.forward = real
+
+
+def phase_remat_inner(models: HalloModels, dev, block_run: dict, scale: str = "full",
+                      size: int = 512, frames: int = 14) -> dict:
+    """Phase 6's step with nested per-layer checkpointing: the same weights
+    as `models` (per-block checkpointing) in a denoiser built with
+    `remat_inner` (the motion feed-forward chunked by 4). The loss and each
+    trainable group's gradient on one batch against the per-block run's
+    (REMAT_INNER_RTOL), a planted replay fault, then 1 + 3 steps: seconds
+    and the peak beside `block_run`'s."""
+    nested = build_models(scale, device=dev, dtype=torch.bfloat16, seed=0, remat=True,
+                          unet_overrides=dict(remat_inner=True))
+    for name, module in models.modules().items():
+        getattr(nested, name).load_state_dict(module.state_dict())
+    batch = synthetic_batch(models, 1, size, frames, 2, seed=4, fixed=True)
+    peaks = {}
+    for name, m in (("per-block", models), ("nested", nested)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        result = grouped_loss_and_grads(m, batch)
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        if name == "per-block":
+            block_loss, block_grads = result
+        else:
+            loss, grads = result
+    log(f"one loss and backward at {size}^2, B 1, {frames} + 2 frames, bf16, above what was "
+        f"allocated before it ({base / 2**30:.3f} GiB: both models): peak "
+        f"{peaks['per-block'] / 2**30:.3f} GiB per-block, {peaks['nested'] / 2**30:.3f} GiB "
+        f"nested")
+    loss_err = abs(loss - block_loss) / abs(block_loss)
+    errs = {k: rel_err(grads[k], g) for k, g in block_grads.items()}
+    log(f"remat_inner vs per-block at {size}^2, B 1, {frames} + 2 frames, bf16: loss {loss:.6f} vs "
+        f"{block_loss:.6f} (rel {loss_err:.3e}); gradient rel_err by group "
+        f"{ {k: float(f'{e:.3e}') for k, e in errs.items()} } (rtol {REMAT_INNER_RTOL})")
+    if not (loss_err <= REMAT_INNER_RTOL and max(errs.values()) <= REMAT_INNER_RTOL):
+        raise RuntimeError(f"remat_inner disagrees with per-block checkpointing "
+                           f"(loss {loss_err}, gradients {errs})")
+    with ff_replay_fault() as replay:
+        _, fault_grads = grouped_loss_and_grads(nested, batch, before_backward=replay)
+    fault = rel_err(fault_grads["motion_ff"], block_grads["motion_ff"])
+    log(f"planted fault, the motion FF's last chunk replayed from zeros: the motion "
+        f"feed-forwards' gradient rel_err {fault:.3e}")
+    if not fault > REMAT_INNER_RTOL:
+        raise RuntimeError(f"the remat_inner check misses a wrong replay ({fault})")
+    del block_grads, grads, fault_grads
+
+    run = train_steps(nested, dev, synthetic_batch(nested, 1, size, frames, 2, seed=0,
+                                                   fixed=False))
+    del run["state"], run["step"]
+    # the per-block models stay allocated beside the nested ones: their
+    # weights are left out of the peak that is compared
+    others = sum(t.nbytes for m in models.modules().values() for t in m.state_dict().values())
+    peak = run["peak"] - others
+    log(f"train at {size}^2, B 1, {frames} + 2 frames, bf16, per-block + per-layer checkpointing: "
+        f"seconds per step {[round(x, 4) for x in run['seconds']]}, median "
+        f"{float(np.median(run['seconds'])):.4f} (per-block only "
+        f"{float(np.median(block_run['seconds'])):.4f}); peak {peak / 2**30:.3f} GiB without "
+        f"the per-block models' {others / 2**30:.3f} GiB of weights (per-block only "
+        f"{block_run['peak'] / 2**30:.3f})")
+    log(f"kernel launches per remat_inner train step: {run['per_step']}")
+    if not peak < block_run["peak"]:
+        raise RuntimeError("remat_inner did not lower the train step's peak")
+    del nested
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(run, peak=peak, loss_err=loss_err, grad_errs=errs, fault=fault,
+                backward_peaks=peaks)
+
+
+def synthetic_videos(root: str, size: int, frames: int) -> tuple:
+    """Two `frames`-frame `size`^2 videos of 1.jpg with a per-frame drift
+    (a shift and a brightness swing) under `root`/videos, and 1.wav tiled to
+    their 5 s: muxed into them where an ffmpeg binary exists, else beside
+    them for `place_wav`. Returns the videos' directory, the WAV and whether
+    it was muxed."""
+    videos = os.path.join(root, "videos")
+    os.makedirs(videos)
+    data, sr = load_wav(WAV)
+    seconds = frames / 25
+    wav = os.path.join(root, "voice.wav")
+    from scipy.io import wavfile
+
+    wavfile.write(wav, sr, np.resize(data, int(seconds * sr)).astype(np.float32))
+    mux = shutil.which("ffmpeg") is not None
+    log(f"dataset videos: audio {'muxed by ffmpeg' if mux else 'placed beside (no ffmpeg)'}")
+    image = cv2.resize(load_image_rgb(IMAGE), (size, size)).astype(np.float32)
+    for v in range(2):
+        video = np.stack([
+            np.clip(np.roll(image, (i % 9) - 4 + v, axis=1) * (0.9 + 0.1 * np.sin(i / 7 + v)),
+                    0, 255).astype(np.uint8)
+            for i in range(frames)])
+        write_video(video, os.path.join(videos, f"video{v}.mp4"), fps=25,
+                    audio_path=wav if mux else None)
+    return videos, wav, mux
+
+
+def place_wav(clips: str, wav: str) -> None:
+    """Without ffmpeg step 1 extracts no audio: name the WAV in each clip, as
+    tests/test_data_pipeline_e2e.py does."""
+    for name in sorted(os.listdir(clips)):
+        if name.endswith(".npz"):
+            path = os.path.join(clips, name)
+            data = dict(np.load(path))
+            data["audio_path"] = np.asarray(wav)
+            np.savez_compressed(path, **data)
+
+
+def phase_dataset(dev, size: int = 512, frames: int = DATASET_FRAMES) -> dict:
+    """The dataset builder (`python -m hallo_tpu_torch.data_preprocess`, steps
+    1 and 2 on the card, no face model files, the full-width wav2vec2 with
+    random weights from its seed), then `extract_meta_info` at stages 1 and
+    2, on two synthetic 5-s videos; seconds a video for each step, K3's
+    launches in step 2. One video again on the CPU in fp32 against the
+    card's clip, and a planted wav2vec2 fault on the card."""
+    root = os.path.join(_build.BUILD_DIR, "dataset")
+    shutil.rmtree(root, ignore_errors=True)
+    videos, wav, mux = synthetic_videos(root, size, frames)
+    clips = os.path.join(root, "clips")
+    common = ["-i", videos, "-o", clips, "--size", str(size),
+              "--face_analysis_model_path", os.path.join(root, "no_face_models"),
+              "--wav2vec_model_path", os.path.join(root, "no_wav2vec")]
+    real = data_preprocess.process_single_video
+    video_seconds: list = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        video_seconds.append(time.perf_counter() - t0)
+        return out
+
+    data_preprocess.process_single_video = timed
+    seconds = {}
+    try:
+        for step in ("1", "2"):
+            video_seconds.clear()
+            if step == "2":
+                reset_counts()
+            t0 = time.perf_counter()
+            meta = data_preprocess.main(common + ["-s", step, "--device", str(dev)])
+            seconds[step] = (time.perf_counter() - t0, list(video_seconds))
+            if len(meta) != 2:
+                raise RuntimeError(f"dataset step {step}: {len(meta)} clips, want 2")
+            if step == "1" and not mux:
+                place_wav(clips, wav)
+    finally:
+        data_preprocess.process_single_video = real
+    counts = launch_counts()
+    for step, (total, per_video) in seconds.items():
+        log(f"dataset step {step} on the card: {total:.3f} s for 2 videos with the tools' "
+            f"build; seconds per video {[round(x, 3) for x in per_video]}")
+    log(f"kernel launches in dataset step 2: {counts}")
+    if counts["flash_fwd_t"] <= 0:
+        raise RuntimeError("the dataset builder's wav2vec2 did not launch K3")
+    metas = {}
+    for stage in ("1", "2"):
+        metas[stage] = os.path.join(root, f"dataset_stage{stage}.json")
+        entries = extract_meta_info.main(["-i", clips, "--stage", stage, "-o", metas[stage]])
+        if len(entries) != 2:
+            raise RuntimeError(f"extract_meta_info --stage {stage}: {entries}")
+    card = dict(np.load(os.path.join(clips, "video0.npz")))
+    log(f"clip video0: { {k: (v.shape, str(v.dtype)) for k, v in card.items()} }")
+    if card["frames"].shape != (frames, size, size, 3) or abs(
+            len(card["audio_emb"]) - frames) > 3:
+        raise RuntimeError(f"clip video0: frames {card['frames'].shape}, audio_emb "
+                           f"{card['audio_emb'].shape}")
+
+    # the same builder on the CPU in fp32, for video0
+    cpu_clips = os.path.join(root, "cpu_clips")
+    os.makedirs(cpu_clips)
+    args = data_preprocess.build_parser().parse_args(
+        common[:2] + ["-o", cpu_clips] + common[4:] + ["--device", "cpu"])
+    video0 = os.path.join(videos, "video0.mp4")
+    t0 = time.perf_counter()
+    data_preprocess.process_single_video(video0, cpu_clips, 1, args,
+                                         data_preprocess.make_tools(1, args))
+    if not mux:
+        place_wav(cpu_clips, wav)
+    cpu_tools = data_preprocess.make_tools(2, args)
+    data_preprocess.process_single_video(video0, cpu_clips, 2, args, cpu_tools)
+    cpu = dict(np.load(os.path.join(cpu_clips, "video0.npz")))
+    log(f"the builder on the CPU for video0: {time.perf_counter() - t0:.3f} s")
+    if card.keys() != cpu.keys():
+        raise RuntimeError(f"card clip keys {sorted(card)} vs CPU {sorted(cpu)}")
+    for key in card:
+        if key not in ("audio_emb", "audio_path") and not np.array_equal(card[key], cpu[key]):
+            raise RuntimeError(f"clip video0: {key} differs between the card and the CPU")
+    err = rel_err(card["audio_emb"], cpu["audio_emb"])
+    log(f"clip video0, card vs CPU: frames, region, masks and face_emb bit for bit; audio_emb "
+        f"rel_err {err:.3e} (rtol {AUDIO_RTOL})")
+    if not err <= AUDIO_RTOL:
+        raise RuntimeError(f"the builder's audio_emb on the card disagrees with the CPU ({err})")
+    card_tools = data_preprocess.make_tools(2, data_preprocess.build_parser().parse_args(
+        common + ["--device", str(dev)]))
+    with torch.no_grad():
+        card_tools.audio.model.state_dict()[DATASET_FAULT_KEY].mul_(DATASET_FAULT_SCALE)
+    faulty, _ = card_tools.audio.preprocess(str(card["audio_path"]))
+    fault = rel_err(faulty, cpu["audio_emb"])
+    log(f"planted fault, {DATASET_FAULT_KEY} x {DATASET_FAULT_SCALE} on the card: audio_emb "
+        f"rel_err {fault:.3e}")
+    if not fault > AUDIO_RTOL:
+        raise RuntimeError(f"the builder's check misses a wav2vec2 weight off by 1% ({fault})")
+    del card_tools, cpu_tools
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(root=root, meta=metas["2"], counts=counts, seconds=seconds, audio_err=err,
+                fault=fault)
+
+
+def phase_trainer(dev, meta: str) -> dict:
     """`train_stage2_process`, the trainer behind `python -m
-    hallo_tpu_torch.train.stage2`, on configs/train/stage2.yaml with these
-    cuts: batch 1 (its 4 does not fit 80 GB, PERF.md), 2 steps with a
-    checkpoint at step 2, no validation renders, one synthetic clip of 20
-    frames at 512^2. Then a resume from checkpoint-2 for a third step. The
-    YAML's pretrained paths are absent from the checkout, so the trainer
-    skips them and keeps its random weights from the YAML's seed."""
+    hallo_tpu_torch.train.stage2`, on configs/train/stage2.yaml as shipped
+    (train_bs 4, per-block and per-layer checkpointing) over the dataset
+    phase's clips (`meta`), read through the prefetcher, with these cuts: 2
+    steps with a checkpoint at step 2, no validation renders, random weights
+    (the YAML's pretrained paths are absent from the checkout). Then a
+    resume from checkpoint-2 for a third step. On an out-of-memory the peak
+    and the allocator's summary are logged and the phase fails."""
     root = os.path.join(_build.BUILD_DIR, "trainer")
-    cfg = trainer_config(root)  # the cuts above (train/bench_trainer.py)
+    cfg = trainer_config(root, meta)  # the cuts above (train/bench_trainer.py)
     exp = os.path.join(root, str(cfg.exp_name))
+    batch = int(cfg.data.train_bs)
 
     def run(steps: int):
         cfg.solver.max_train_steps = steps
@@ -1643,15 +1960,22 @@ def phase_trainer(dev) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state = train_stage2_process(cfg, dev)
+        try:
+            state = train_stage2_process(cfg, dev)
+        except torch.cuda.OutOfMemoryError:
+            log(f"trainer at B {batch}: out of memory, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB\n"
+                f"{torch.cuda.memory_summary()}")
+            raise
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         with open(os.path.join(exp, "metrics.jsonl")) as fh:
             lines = [json.loads(line) for line in fh]
-        log(f"trainer to step {steps}: {seconds:.3f} s with the model build and the files, "
-            f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; metrics.jsonl "
-            f"(step, loss, grad_norm, sec): "
-            f"{[(r['step'], r['loss'], r['grad_norm'], r['sec']) for r in lines]}")
+        log(f"trainer to step {steps} at B {batch}: {seconds:.3f} s with the model build and "
+            f"the files, peak {peak / 2**30:.3f} GiB; metrics.jsonl (step, loss, grad_norm, "
+            f"sec since the loop's start, data wait td): "
+            f"{[(r['step'], r['loss'], r['grad_norm'], r['sec'], r['td']) for r in lines]}")
         if state.step != steps or [r["step"] for r in lines] != list(range(steps)):
             raise RuntimeError(f"trainer: step {state.step}, metrics.jsonl steps "
                                f"{[r['step'] for r in lines]}; want {steps}")
@@ -1659,20 +1983,25 @@ def phase_trainer(dev) -> dict:
             raise RuntimeError(f"trainer: non-finite loss or grad norm in {lines}")
         if not os.path.isfile(os.path.join(exp, "final_net", "denoising_net.pt")):
             raise RuntimeError("trainer: no final_net/ export")
-        return state, launch_counts(), seconds
+        return state, launch_counts(), seconds, peak, lines
 
-    state, counts, seconds = run(2)
-    log(f"kernel launches in the trainer's 2 steps: {counts}")
-    for name in ("flash_fwd_packed", "flash_bwd_dkv", "flash_bwd_dq", "temporal_attn",
-                 "flash_fwd"):
-        if counts[name] <= 0:
+    state, counts, seconds, peak, lines = run(2)
+    step_s = [lines[0]["sec"]] + [b["sec"] - a["sec"] for a, b in zip(lines, lines[1:])]
+    log(f"trainer at B {batch}: seconds per step {[round(x, 3) for x in step_s]} (the first "
+        f"with its data wait), data wait per step {[r['td'] for r in lines]}, peak "
+        f"{peak / 2**30:.3f} GiB")
+    per_step = {k: counts[k] / 2 for k in ("flash_fwd_packed", "flash_bwd_dkv", "flash_bwd_dq",
+                                           "temporal_attn", "flash_fwd")}
+    log(f"kernel launches per trainer step at B {batch}: {per_step}")
+    for name, n in per_step.items():
+        if n <= 0:
             raise RuntimeError(f"kernel {name} was not launched by the trainer")
     if not os.path.isfile(os.path.join(exp, "checkpoint-2", "train_state.pt")):
         raise RuntimeError("trainer: no checkpoint-2 after 2 steps")
     masters = {k: v.cpu() for k, v in state.params.items()}
     del state
     torch.cuda.empty_cache()
-    resumed, _, resume_s = run(3)
+    resumed, _, resume_s, _, _ = run(3)
     same = [k for k, v in resumed.params.items() if torch.equal(v.cpu(), masters[k])]
     if resumed.params.keys() != masters.keys() or same:
         raise RuntimeError(f"trainer resume: {len(same)} trainable tensors did not move in "
@@ -1681,7 +2010,8 @@ def phase_trainer(dev) -> dict:
     del resumed
     shutil.rmtree(root)
     torch.cuda.empty_cache()
-    return dict(counts=counts, seconds=seconds, resume_seconds=resume_s)
+    return dict(counts=counts, seconds=seconds, resume_seconds=resume_s, peak=peak,
+                step_seconds=step_s, data_wait=[r["td"] for r in lines])
 
 
 # -- stage 1, the static pipeline, several identities ------------------------
@@ -2500,11 +2830,16 @@ def main() -> None:
     phase_batch2(slice_["models"], args.steps)
     mark("B 2 clip")
     train = phase_train(slice_["models"], dev, profile_out=train_profile)
+    phase_remat_inner(slice_["models"], dev, train)
     mark("train")
     launches = {"slice": slice_["counts"], "audio": audio["counts"], "train": train["counts"]}
     del slice_  # the trainer builds its own models
+    gc.collect()
     torch.cuda.empty_cache()
-    phase_trainer(dev)
+    dataset = phase_dataset(dev)
+    mark("dataset")
+    phase_trainer(dev, dataset["meta"])
+    shutil.rmtree(dataset["root"])
     mark("trainer")
     phase_static(dev, profile_out=static_profile)
     mark("static")

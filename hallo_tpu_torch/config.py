@@ -3,10 +3,10 @@
 The port's own copy of the dataclasses and helpers of hallo_tpu/config.py
 that it uses (the port imports nothing of the JAX package). Field names,
 defaults and semantics are the JAX package's, less the fields the port does
-not implement (UNetConfig's `remat_inner`, which existed to fit a 16 GB
-chip, and `use_linear_projection` and `upcast_attention`, which SD-1.5
-leaves off; SchedulerConfig's `clip_sample`, off in the reference's DDIM). A
-port configuration's `dataclasses.asdict` builds the same JAX configuration.
+not implement (UNetConfig's `use_linear_projection` and `upcast_attention`,
+which SD-1.5 leaves off; SchedulerConfig's `clip_sample`, off in the
+reference's DDIM). A port configuration's `dataclasses.asdict` builds the
+same JAX configuration.
 
 The YAML helpers (`unet_config_from_yaml_kwargs`, `DotDict`, `load_yaml`,
 `load_config`, `merge_cli_overrides`, `to_container`) are copies of the JAX package's without
@@ -88,6 +88,14 @@ class UNetConfig:
     # solver.gradient_checkpointing): each down, mid and up block of the
     # denoiser is recomputed in the backward pass.
     remat: bool = False
+    # Nested per-layer checkpointing inside each denoiser block (the
+    # solver's gradient_checkpointing_inner): each resnet, spatial and audio
+    # transformer and motion module, and inside a motion module each
+    # temporal attention and the feed-forward (over 4 chunks of the site
+    # axis), is recomputed on its own. The backward's replay of a block then
+    # holds one sub-layer's temporaries at a time, for one more forward of
+    # each sub-layer. The ReferenceNet does not take it.
+    remat_inner: bool = False
 
 
 @dataclass(frozen=True)

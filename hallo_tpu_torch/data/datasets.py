@@ -14,14 +14,17 @@ yielded as numpy batches in the layouts `train.step.make_train_step` takes:
     face_emb (B, E), face_region (B, H, W, 3),
     masks 4 x (full, face, lip) each (B, L_d)
 
-Clips are read synchronously; the JAX package's native C++ prefetcher
-(`data/native_prefetch.py`) is not ported yet.
+`batch_iterator` reads the clips ahead through the C++ prefetcher
+(`data/native_prefetch.py`), in epoch order, so the items, their random
+draws and the batches are the synchronous reads' bit for bit.
 """
 
 from __future__ import annotations
 
 import json
+import queue
 import random
+import threading
 from typing import Dict, Iterator, List
 
 import numpy as np
@@ -150,11 +153,23 @@ class TalkingVideoDataset:
 
 
 def batch_iterator(
-    dataset, batch_size: int, seed: int = 0
+    dataset,
+    batch_size: int,
+    seed: int = 0,
+    prefetch: bool = True,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Endless shuffling batch loader: one permutation per epoch, batches of
     `batch_size` items (a dataset smaller than a batch is sampled with
-    replacement, so every epoch yields at least one batch)."""
+    replacement, so every epoch yields at least one batch). The tail of an
+    epoch that does not fill a batch is always dropped.
+
+    With `prefetch`, the epoch's clip files are read ahead by the C++
+    `FilePrefetcher` in epoch order (hallo_tpu/data/datasets.py:153-220),
+    and one background thread decodes them and builds the items with
+    `dataset.assemble`, in that order and one batch ahead of the consumer:
+    the thread is the only one to draw from the dataset's and the order's
+    generators while the iterator runs. A file that cannot be read raises
+    here; there is no synchronous fallback."""
     if len(dataset) == 0:
         raise ValueError("batch_iterator: empty dataset")
     rng = np.random.default_rng(seed)
@@ -168,6 +183,23 @@ def batch_iterator(
             )
         return order[: len(order) - len(order) % batch_size]
 
+    def stream() -> Iterator[Dict[str, np.ndarray]]:
+        """The items of every epoch, in order."""
+        while True:
+            order = epoch_order()
+            if not prefetch:
+                for j in order:
+                    yield dataset[int(j)]
+                continue
+            from hallo_tpu_torch.data.native_prefetch import FilePrefetcher
+
+            pf = FilePrefetcher([dataset.clip_path(int(j)) for j in order])
+            try:
+                for clip in pf.iter_npz():
+                    yield dataset.assemble(clip)
+            finally:
+                pf.close()
+
     def collate(items):
         batch = {}
         for key in items[0]:
@@ -180,10 +212,51 @@ def batch_iterator(
                 batch[key] = np.stack([it[key] for it in items])
         return batch
 
-    while True:
-        items = []
-        for j in epoch_order():
-            items.append(dataset[int(j)])
-            if len(items) == batch_size:
-                yield collate(items)
-                items = []
+    items = _in_background(stream(), depth=batch_size) if prefetch else stream()
+    try:
+        while True:
+            yield collate([next(items) for _ in range(batch_size)])
+    finally:
+        items.close()
+
+
+def _in_background(items: Iterator, depth: int) -> Iterator:
+    """`items`, produced by one background thread up to `depth` ahead and
+    consumed in order; an error in the thread is raised here. Closing the
+    returned generator (or dropping it) stops the thread and closes
+    `items`."""
+    out: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(entry) -> bool:
+        while not stop.is_set():
+            try:
+                out.put(entry, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def produce() -> None:
+        error: BaseException = RuntimeError("batch_iterator: the reader thread ended")
+        try:
+            for item in items:
+                if not put((item, None)):
+                    return
+        except Exception as e:  # handed to the consumer, which raises it
+            error = e
+        finally:
+            items.close()
+            put((None, error))
+
+    thread = threading.Thread(target=produce, name="batch_iterator", daemon=True)
+    thread.start()
+    try:
+        while True:
+            item, error = out.get()
+            if error is not None:
+                raise error
+            yield item
+    finally:
+        stop.set()
+        thread.join()

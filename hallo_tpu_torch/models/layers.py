@@ -17,9 +17,19 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from hallo_tpu_torch.ops.flash import flash_attention_packed
 from hallo_tpu_torch.ops.temporal import temporal_attention
+
+
+def maybe_checkpoint(enable: bool, fn, *args):
+    """`fn(*args)`, recomputed in the backward pass (a non-reentrant
+    checkpoint, which nests inside another) when `enable` and grad mode are
+    on."""
+    if enable and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def group_norm(
@@ -146,15 +156,30 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward (diffusers keys net.0.proj, net.2)."""
+    """GEGLU feed-forward (diffusers keys net.0.proj, net.2).
 
-    def __init__(self, dim: int, mult: int = 4):
+    `chunks` > 1 splits the second-to-last (token) axis into that many
+    equal parts and, with grad on, runs each part under its own checkpoint,
+    so that the GEGLU temporaries exist one part at a time in the forward
+    and in the backward (JAX's `FeedForward.chunks`, there a `lax.map`). The
+    math and the parameters are the same; an axis that does not divide, or
+    an input of fewer than 2 axes, runs unchunked."""
+
+    def __init__(self, dim: int, mult: int = 4, chunks: int = 1):
         super().__init__()
         inner = dim * mult
+        self.chunks = chunks
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def ff(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[0](x))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = self.chunks
+        if n <= 1 or x.ndim < 2 or x.shape[-2] % n:
+            return self.ff(x)
+        return torch.cat([maybe_checkpoint(True, self.ff, part)
+                          for part in x.chunk(n, dim=-2)], dim=-2)
 
 
 class CrossAttention(nn.Module):

@@ -4,7 +4,10 @@ the frame axis at every spatial site, on (B, T, L, C) with the sinusoidal
 positional encoding added to the normed sequence; ReferenceNet motion-frame
 features are concatenated ahead of the clip on the time axis and sliced off
 afterwards. Parameters follow the reference's
-`temporal_transformer.*` keys; the PE table is computed, not stored."""
+`temporal_transformer.*` keys; the PE table is computed, not stored. With
+`remat_inner`, each temporal attention and the feed-forward (over 4 chunks
+of the site axis) are recomputed on their own in the backward pass
+(hallo_tpu/models/motion.py:134-160)."""
 
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from hallo_tpu_torch.models.layers import (
     GroupNorm,
     LayerNorm,
     TemporalSelfAttention,
+    maybe_checkpoint,
     sinusoidal_positions,
 )
 
@@ -46,8 +50,10 @@ class TemporalAttention(TemporalSelfAttention):
 
 
 class _TemporalBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, head_dim: int, cfg: MotionModuleConfig):
+    def __init__(self, dim: int, heads: int, head_dim: int, cfg: MotionModuleConfig,
+                 remat_inner: bool = False):
         super().__init__()
+        self.remat_inner = remat_inner
         n = len(cfg.attention_block_types)
         if any(t != "Temporal_Self" for t in cfg.attention_block_types):
             raise ValueError(f"attention_block_types {cfg.attention_block_types}: "
@@ -59,17 +65,19 @@ class _TemporalBlock(nn.Module):
             for _ in range(n)
         ])
         self.norms = nn.ModuleList([LayerNorm(dim) for _ in range(n)])
-        self.ff = FeedForward(dim)
+        # the feed-forward over (B, T, L, C) chunks the sites L by 4 when they
+        # divide (FeedForward runs it unchunked otherwise)
+        self.ff = FeedForward(dim, chunks=4 if remat_inner else 1)
         self.ff_norm = LayerNorm(dim)
 
     def forward(self, hs: torch.Tensor) -> torch.Tensor:
         for attn, norm in zip(self.attention_blocks, self.norms):
-            hs = hs + attn(norm(hs))
-        return hs + self.ff(self.ff_norm(hs))
+            hs = hs + maybe_checkpoint(self.remat_inner, lambda z, a=attn, n=norm: a(n(z)), hs)
+        return hs + maybe_checkpoint(self.remat_inner, lambda z: self.ff(self.ff_norm(z)), hs)
 
 
 class _TemporalTransformer(nn.Module):
-    def __init__(self, channels: int, cfg: MotionModuleConfig):
+    def __init__(self, channels: int, cfg: MotionModuleConfig, remat_inner: bool = False):
         super().__init__()
         heads = cfg.num_attention_heads
         head_dim = channels // heads // cfg.temporal_attention_dim_div
@@ -77,7 +85,7 @@ class _TemporalTransformer(nn.Module):
         self.norm = GroupNorm(cfg.norm_num_groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, inner)
         self.transformer_blocks = nn.ModuleList([
-            _TemporalBlock(inner, heads, head_dim, cfg)
+            _TemporalBlock(inner, heads, head_dim, cfg, remat_inner)
             for _ in range(cfg.num_transformer_block)
         ])
         self.proj_out = nn.Linear(inner, channels)
@@ -88,9 +96,9 @@ class _TemporalTransformer(nn.Module):
 class MotionModule(nn.Module):
     """GN -> proj_in -> temporal blocks -> zero-init proj_out + residual."""
 
-    def __init__(self, channels: int, cfg: MotionModuleConfig):
+    def __init__(self, channels: int, cfg: MotionModuleConfig, remat_inner: bool = False):
         super().__init__()
-        self.temporal_transformer = _TemporalTransformer(channels, cfg)
+        self.temporal_transformer = _TemporalTransformer(channels, cfg, remat_inner)
 
     def forward(self, x: torch.Tensor, motion_feats: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:

@@ -3,17 +3,29 @@ hallo_tpu/models/unet_blocks.py; reference unet_3d_blocks.py). Per layer:
 resnet -> spatial attention (ref-feature KV injection) -> audio attention ->
 motion module. Video tensors are (B, F, C, H, W). The motion module takes
 the ReferenceNet motion-frame features itself (hallo_tpu's
-`fuse_motion_frames`: concatenated on the time axis, sliced back off)."""
+`fuse_motion_frames`: concatenated on the time axis, sliced back off).
+
+With `remat_inner` and grad on, the resnet, spatial and audio transformers
+each run under their own checkpoint, nested inside the denoiser's per-block
+one (JAX's `inner_remat`, hallo_tpu/models/unet_blocks.py:48-61): the
+backward's replay of a block then holds one sub-layer's temporaries at a
+time, for one more forward of each sub-layer. The motion module is the one
+sub-layer without a checkpoint of its own, where JAX's has one: its
+temporal attentions and feed-forward chunks hold theirs, so a fourth run of
+them would bound no more memory (on an H100: the same peak at stage2.yaml's
+B 4, and less time a step; PERF.md)."""
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from hallo_tpu_torch.config import MotionModuleConfig
+from hallo_tpu_torch.models.layers import maybe_checkpoint
 from hallo_tpu_torch.models.motion import MotionModule
 from hallo_tpu_torch.models.resnet import Downsample, ResnetBlock, Upsample
 from hallo_tpu_torch.models.transformer_spatial import AudioTransformer, SpatialTransformer
@@ -58,8 +70,10 @@ class _Layers(nn.Module):
         hierarchical: bool,
         motion_config: Optional[MotionModuleConfig],
         n_attn: Optional[int] = None,  # layers with attention/audio/motion
+        remat_inner: bool = False,
     ):
         super().__init__()
+        self.remat_inner = remat_inner
         n = len(in_channels) if n_attn is None else n_attn
         self.resnets = nn.ModuleList([
             ResnetBlock(c, out_channels, temb_channels, groups, eps, inflated)
@@ -79,21 +93,20 @@ class _Layers(nn.Module):
             ])
         if motion_config is not None:
             self.motion_modules = nn.ModuleList([
-                MotionModule(out_channels, motion_config) for _ in range(n)
+                MotionModule(out_channels, motion_config, remat_inner) for _ in range(n)
             ])
 
     def layer(self, i, x, temb, cond, ref_feature, motion_feature):
-        x = self.resnets[i](x, temb)
+        sub = partial(maybe_checkpoint, self.remat_inner)
+        x = sub(self.resnets[i], x, temb)
         if hasattr(self, "attentions"):
-            x = self.attentions[i](
-                x, ref_feature, cond.context, cond.uncond_mask, cond.cfg_split
-            )
+            x = sub(self.attentions[i], x, ref_feature, cond.context, cond.uncond_mask,
+                    cond.cfg_split)
         if hasattr(self, "audio_modules") and cond.audio_context is not None:
-            x = self.audio_modules[i](
-                x, cond.audio_context,
-                *(cond.masks if cond.masks is not None else (None,) * 3),
-                motion_scale=cond.motion_scale, cfg_split=cond.cfg_split,
-            )
+            x = sub(partial(self.audio_modules[i], motion_scale=cond.motion_scale,
+                            cfg_split=cond.cfg_split),
+                    x, cond.audio_context,
+                    *(cond.masks if cond.masks is not None else (None,) * 3))
         if hasattr(self, "motion_modules"):
             x = self.motion_modules[i](x, motion_feature)
         return x
@@ -138,7 +151,7 @@ class MidBlock(_Layers):
             None if ref_features is None else ref_features[0],
             None if motion_features is None else motion_features[0],
         )
-        return self.resnets[1](x, temb)
+        return maybe_checkpoint(self.remat_inner, self.resnets[1], x, temb)
 
 
 class UpBlock(_Layers):

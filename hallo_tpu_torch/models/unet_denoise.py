@@ -9,15 +9,16 @@ ReferenceNet features arrive as explicit arguments keyed "down_{i}" / "mid"
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from hallo_tpu_torch.config import UNetConfig
-from hallo_tpu_torch.models.layers import GroupNorm, TimestepEmbedding, timestep_embedding
+from hallo_tpu_torch.models.layers import (
+    GroupNorm, TimestepEmbedding, maybe_checkpoint, timestep_embedding)
 from hallo_tpu_torch.models.resnet import fold, unfold
 from hallo_tpu_torch.models.unet_blocks import Conditioning, DownBlock, MidBlock, UpBlock
 
@@ -60,6 +61,7 @@ class DenoisingUNet(nn.Module):
             temb_channels=temb, heads=heads, groups=cfg.norm_num_groups,
             eps=cfg.norm_eps, inflated=cfg.use_inflated_groupnorm,
             context_dim=cfg.cross_attention_dim, audio_dim=cfg.audio_attention_dim,
+            remat_inner=cfg.remat_inner,
         )
 
         def audio(attn: bool, inners):
@@ -131,7 +133,10 @@ class DenoisingUNet(nn.Module):
         `config.motion_frame_fusion` says ("mid" at inference), or at every
         block with `train` (the reference's training path). With
         `config.remat` and grad mode on, each down, mid and up block is
-        recomputed in the backward pass (JAX's `maybe_remat`)."""
+        recomputed in the backward pass (JAX's `maybe_remat`); with
+        `config.remat_inner`, each sub-layer inside a block is too (JAX's
+        `inner_remat`), the motion module through its temporal attentions
+        and feed-forward chunks (unet_blocks.py)."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         b, f = sample.shape[:2]
@@ -164,10 +169,7 @@ class DenoisingUNet(nn.Module):
         def at(depth):
             return cond.at_depth(None if masks is None else masks[depth])
 
-        def run(blk, *args):
-            if cfg.remat and torch.is_grad_enabled():
-                return checkpoint(blk, *args, use_reentrant=False)
-            return blk(*args)
+        run = partial(maybe_checkpoint, cfg.remat)
 
         skips = [x]
         for i, blk in enumerate(self.down_blocks):

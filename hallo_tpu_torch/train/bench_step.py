@@ -1,19 +1,21 @@
 """Seconds per stage-2 train step on the card (counterpart of
 scripts/bench_train_step.py, BASELINE.json config 5).
 
-    python -m hallo_tpu_torch.train.bench_step
+    python -m hallo_tpu_torch.train.bench_step [--batch 4 --remat-inner]
 
 The full-width models (random weights from a seed, bf16, per-block
-gradient checkpointing) take 12 steps of `make_train_step` at 512^2,
-batch 1, 14 + 2 frames, on a synthetic batch from a seed; then one more
-step under torch.profiler counts the kernel launches and the device's busy
-time. It prints the card's name and power limit, then one JSON line.
+gradient checkpointing, with `--remat-inner` per-layer too, as stage2.yaml
+trains) take 12 steps of `make_train_step` at 512^2, `--batch` samples (1
+by default; stage2.yaml's is 4), 14 + 2 frames, on a synthetic batch from
+a seed; then one more step under torch.profiler counts the kernel launches
+and the device's busy time. It prints the card's name and power limit, then one JSON line.
 Times on one card spread between runs (PERF.md): compare two versions of
 the code only within one machine session, in turns.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -65,18 +67,24 @@ def synthetic_batch(models: HalloModels, b: int, size: int, frames: int, motion:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--remat-inner", action="store_true",
+                    help="nested per-layer checkpointing inside each block")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_step: no CUDA device")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
-    models = build_models("full", device=dev, dtype=torch.bfloat16, seed=0, remat=True)
+    models = build_models("full", device=dev, dtype=torch.bfloat16, seed=0, remat=True,
+                          unet_overrides=dict(remat_inner=args.remat_inner))
     trainable = unfreeze(models.modules(), stage2_trainable)
     opt = AdamW(OptimizerConfig(learning_rate=1e-5, lr_warmup_steps=1))  # stage2.yaml
     state = TrainState.create(trainable, opt)
     step = make_train_step(models, trainable, opt, TrainConfig())
-    batch = synthetic_batch(models, 1, 512, 14, 2, seed=0, fixed=False)
+    batch = synthetic_batch(models, args.batch, 512, 14, 2, seed=0, fixed=False)
 
     torch.cuda.reset_peak_memory_stats()
     seconds, losses = [], []
@@ -104,7 +112,8 @@ def main() -> None:
             us = getattr(e, "self_device_time_total", None)
             busy_us += e.self_cuda_time_total if us is None else us
     print(json.dumps(dict(
-        seconds=seconds, median_after_warmup=float(np.median(seconds[2:])), losses=losses,
+        batch=args.batch, remat_inner=args.remat_inner, seconds=seconds,
+        median_after_warmup=float(np.median(seconds[2:])), losses=losses,
         peak_gib=peak / 2**30, profiled_wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
         kernel_launch_calls=launches)), flush=True)
 

@@ -3,10 +3,11 @@ often a step goes non-finite, and where.
 
     python -m hallo_tpu_torch.train.bench_trainer [--runs 5] [--watch]
 
-Each run is `chip_smoke.py`'s trainer phase: `train_stage2_process` on
-configs/train/stage2.yaml cut to batch 1, no validation renders and one
-synthetic 20-frame 512^2 clip, 2 steps with a checkpoint at step 2, then a
-resume from it for a third step. A run is non-finite when a step's loss or
+Each run is `chip_smoke.py`'s trainer phase over one synthetic 20-frame
+512^2 clip (sampled with replacement) in place of the dataset phase's:
+`train_stage2_process` on configs/train/stage2.yaml at its batch of 4, no
+validation renders, 2 steps with a checkpoint at step 2, then a resume
+from it for a third step. A run is non-finite when a step's loss or
 gradient norm is (the trainer's NaN guard then skips the step). With
 `--watch`, max |x| of the outputs of every launch of K1, K2, K3/K4 and
 K5's two passes, and of every trainable gradient, is kept on the device
@@ -25,6 +26,7 @@ import os
 import shutil
 import subprocess
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -65,14 +67,15 @@ def write_trainer_clip(root: str, frames: int, size: int, seed: int) -> str:
     return meta
 
 
-def trainer_config(root: str):
+def trainer_config(root: str, meta_path: Optional[str] = None):
     """configs/train/stage2.yaml with the cuts above, writing under `root`
-    (emptied first); `solver.max_train_steps` is set by the caller."""
+    (emptied first), over `meta_path`'s clips or else the synthetic clip;
+    `solver.max_train_steps` is set by the caller."""
     shutil.rmtree(root, ignore_errors=True)
     cfg = cfglib.load_config(STAGE2_YAML)
     size = int(cfg.data.train_width)
-    cfg.data.train_bs = 1
-    cfg.data.meta_paths = [write_trainer_clip(os.path.join(root, "data"), 20, size, seed=3)]
+    cfg.data.meta_paths = [meta_path or write_trainer_clip(os.path.join(root, "data"), 20,
+                                                           size, seed=3)]
     cfg.checkpointing_steps = 2
     cfg.val.validation_steps = 0
     cfg.output_dir = root

@@ -30,6 +30,16 @@ def compute_dtype(solver) -> torch.dtype:
     return torch.bfloat16 if mp in ("bf16", "fp16", "bfloat16") else torch.float32
 
 
+def checkpointing(solver) -> Dict[str, bool]:
+    """The denoiser's recomputation flags from the solver keys
+    (scripts/train_stage2.py:64-77): `gradient_checkpointing` per block
+    (`remat`) and, unless `gradient_checkpointing_inner` is false, per layer
+    inside each block (`remat_inner`)."""
+    remat = bool(solver.get("gradient_checkpointing", False))
+    return dict(remat=remat,
+                remat_inner=remat and bool(solver.get("gradient_checkpointing_inner", True)))
+
+
 def optimizer_config(solver) -> OptimizerConfig:
     """The YAML's solver keys (scripts/train_stage1.py:106-122)."""
     return OptimizerConfig(
@@ -114,8 +124,8 @@ def train_loop(
             consecutive_skips = 0
         if step % log_every == 0:
             line = dict(loss=step_metrics["loss"], grad_norm=step_metrics["grad_norm"],
-                        td=round(td_window, 3), nan_skips=nan_skips,
-                        sec=round(time.time() - t0, 1))
+                        td=round(td_window, 4), nan_skips=nan_skips,
+                        sec=round(time.time() - t0, 3))
             td_window = 0.0
             logger.info("%s", {"step": step, **line})
             metrics.log(step, **line)

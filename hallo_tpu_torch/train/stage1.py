@@ -7,13 +7,15 @@ scripts/train_stage1.py:289-793).
 
 The config is the JAX trainer's YAML, read as there: `data.train_bs` frames
 of `data.train_width`^2 from the `FaceMaskDataset` clips of
-`data.meta_paths`; the solver keys (`use_8bit_adam` for the int8-moment
-AdamW, `gradient_checkpointing` for the denoiser's per-block
-recomputation); `uncond_ratio`, `noise_offset`, `snr_gamma`; the pretrained
-SD-1.5 UNet and VAE from `base_model_path` and `vae_model_path` where they
-exist; checkpoint-N every `checkpointing_steps`, resumed from "latest"; a
-validation still through the static pipeline every `val.validation_steps`;
-and the `final_{module}` exports that `train.stage2` reads through
+`data.meta_paths`, read ahead by the C++ prefetcher; the solver keys
+(`use_8bit_adam` for the int8-moment AdamW, `gradient_checkpointing` for
+the denoiser's per-block recomputation, with `gradient_checkpointing_inner`,
+true by default, its per-layer one inside each block); `uncond_ratio`,
+`noise_offset`, `snr_gamma`; the pretrained SD-1.5 UNet and VAE from
+`base_model_path` and `vae_model_path` where they exist; checkpoint-N every
+`checkpointing_steps`, resumed from "latest"; a validation still through
+the static pipeline every `val.validation_steps`; and the `final_{module}`
+exports that `train.stage2` reads through
 `stage1_ckpt_dir`. The exports hold the fp32 masters of the trained
 tensors. Not ported: the mesh and ZeRO (the trainer runs on one device).
 """
@@ -31,7 +33,7 @@ from hallo_tpu_torch.config import SchedulerConfig, unet_config_from_yaml_kwargs
 from hallo_tpu_torch.data.datasets import FaceMaskDataset, batch_iterator
 from hallo_tpu_torch.pipelines.face_animate import HalloModels
 from hallo_tpu_torch.train.loop import (
-    compute_dtype, optimizer_config, overlay_pretrained, train_loop)
+    checkpointing, compute_dtype, optimizer_config, overlay_pretrained, train_loop)
 from hallo_tpu_torch.train.state import TrainState, make_optimizer, stage1_trainable, unfreeze
 from hallo_tpu_torch.train.step import TrainConfig, make_train_step
 from hallo_tpu_torch.utils import checkpoint as ckpt
@@ -44,14 +46,16 @@ EXPORTED = ("reference_net", "denoising_net", "face_locator", "image_proj")
 def stage1_models(cfg, device: torch.device) -> HalloModels:
     """The stage-1 networks of `cfg` from its seed: the denoiser without
     motion or audio modules (with `solver.gradient_checkpointing`'s
-    per-block recomputation), the ReferenceNet without inflated GroupNorm
-    (scripts/train_stage1.py:77-87)."""
+    per-block recomputation and, unless `gradient_checkpointing_inner` is
+    false, the per-layer one), the ReferenceNet without inflated GroupNorm
+    (scripts/train_stage1.py:70-87; the ReferenceNet is not recomputed, as
+    in JAX)."""
     solver = cfg.solver
     unet_kwargs = (cfglib.to_container(cfg.unet_additional_kwargs)
                    if "unet_additional_kwargs" in cfg else {})
     den_cfg = unet_config_from_yaml_kwargs(
         unet_kwargs, use_motion_module=False, use_audio_module=False,
-        remat=bool(solver.get("gradient_checkpointing", False)))
+        **checkpointing(solver))
     ref_cfg = unet_config_from_yaml_kwargs(
         unet_kwargs, use_motion_module=False, use_audio_module=False,
         use_inflated_groupnorm=False)

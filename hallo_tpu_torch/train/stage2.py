@@ -10,10 +10,14 @@ laid over the random initialisation (`base_model_path`, `vae_model_path`,
 directory (`stage1_ckpt_dir`, the `final_{module}` exports of
 `train.stage1`); paths that do not exist are skipped with a log line.
 `solver.use_8bit_adam` selects the int8-moment AdamW, and
-`val.validation_steps` renders a validation video. Not ported: the mesh,
-clip and tensor parallelism and ZeRO (the trainer runs on one device), and
-the YAML's `data.train_bs: 4`, which does not fit an 80 GB H100 at 512^2
-with per-block checkpointing (PERF.md): set it to 1 there.
+`val.validation_steps` renders a validation video.
+`solver.gradient_checkpointing` recomputes each denoiser block in the
+backward pass and, unless `solver.gradient_checkpointing_inner` is false,
+each sub-layer inside a block too (`UNetConfig.remat_inner`): that is what
+fits the YAML's `data.train_bs: 4` at 512^2 on one 80 GB H100. Clips are
+read ahead by the C++ prefetcher (`data/native_prefetch.py`). Not ported:
+the mesh, clip and tensor parallelism and ZeRO (the trainer runs on one
+device).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from hallo_tpu_torch.config import SchedulerConfig, unet_config_from_yaml_kwargs
 from hallo_tpu_torch.data.datasets import TalkingVideoDataset, batch_iterator
 from hallo_tpu_torch.pipelines.face_animate import HalloModels
 from hallo_tpu_torch.train.loop import (
-    compute_dtype, optimizer_config, overlay_pretrained, train_loop)
+    checkpointing, compute_dtype, optimizer_config, overlay_pretrained, train_loop)
 from hallo_tpu_torch.train.state import TrainState, make_optimizer, stage2_trainable, unfreeze
 from hallo_tpu_torch.train.step import TrainConfig, make_train_step
 from hallo_tpu_torch.utils import checkpoint as ckpt
@@ -64,12 +68,11 @@ def train_stage2_process(cfg, device: torch.device = torch.device("cuda")) -> Tr
     exp_dir = os.path.join(str(cfg.output_dir), str(cfg.exp_name))
     os.makedirs(exp_dir, exist_ok=True)
     solver = cfg.solver
-    grad_ckpt = bool(solver.get("gradient_checkpointing", False))
     seed = int(cfg.seed)
 
     f, m = int(cfg.data.n_sample_frames), int(cfg.data.n_motion_frames)
     unet_kwargs = cfglib.to_container(cfg.unet_additional_kwargs)
-    den_cfg = unet_config_from_yaml_kwargs(unet_kwargs, remat=grad_ckpt)
+    den_cfg = unet_config_from_yaml_kwargs(unet_kwargs, **checkpointing(solver))
     ref_cfg = unet_config_from_yaml_kwargs(
         unet_kwargs, use_motion_module=False, use_audio_module=False,
         use_inflated_groupnorm=False)
@@ -137,9 +140,7 @@ def train_stage2_process(cfg, device: torch.device = torch.device("cuda")) -> Tr
 
 def main() -> None:
     logging.basicConfig(level=logging.INFO)
-    parser = argparse.ArgumentParser(
-        description="Stage-2 training of the PyTorch port. On an 80 GB card at 512^2, set "
-                    "the YAML's data.train_bs to 1 (stage2.yaml's 4 runs out of memory).")
+    parser = argparse.ArgumentParser(description="Stage-2 training of the PyTorch port.")
     parser.add_argument("--config", default="configs/train/stage2.yaml")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args()

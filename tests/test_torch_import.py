@@ -1,12 +1,13 @@
 """hallo_tpu_torch imports torch and never the JAX package, jax or triton:
 in a fresh interpreter, importing every module of the package and running
 the tiny slice, the tiny audio path, one tiny stage-2 train step, a tiny
-static image, one tiny stage-1 step with the 8-bit AdamW, the host
-preprocessing, the ONNX executor with the vocal separator, the checkpoint
-loader and the preflight on the CPU leave none of them in sys.modules, and
-no source line of the port or of chip_smoke.py imports hallo_tpu. Also: the
-port's tiny widths are the JAX factory's, and its entry points default to
-the card."""
+static image, one tiny stage-1 step with the 8-bit AdamW, one tiny stage-2
+step with nested checkpointing, the host preprocessing, the ONNX executor
+with the vocal separator, the checkpoint loader, the preflight, the dataset
+builder and the prefetching reader on the CPU leave none of them in
+sys.modules, and no source line of the port or of chip_smoke.py imports
+hallo_tpu. Also: the port's tiny widths are the JAX factory's, and its
+entry points default to the card."""
 
 import dataclasses
 import inspect
@@ -70,6 +71,12 @@ batch1 = dict(pixel_values=rng.uniform(-1, 1, (1, 1, 64, 64, 3)),
               face_region=np.ones((1, 64, 64, 3)))
 state, metrics = step(TrainState.create(trainable, opt), batch1, step_generator(0, 0, "cpu"))
 assert state.step == 1 and np.isfinite(metrics["loss"]) and "q8" in state.opt_state
+nested = build_models("tiny", device="cpu", remat=True, unet_overrides=dict(remat_inner=True))
+trainable = unfreeze(nested.modules(), stage2_trainable)
+opt = AdamW(OptimizerConfig())
+state, metrics = make_train_step(nested, trainable, opt)(
+    TrainState.create(trainable, opt), batch, step_generator(0, 0, "cpu"))
+assert np.isfinite(metrics["loss"])
 import os, tempfile
 from hallo_tpu_torch.convert.onnx_io import OnnxNode, save_onnx
 from hallo_tpu_torch.convert.load_pretrained import load_pretrained
@@ -94,6 +101,21 @@ writer.close()
 assert len(read_frames(os.path.join(tmp, "v.mp4"))) == 2
 s = resolve_settings(load_yaml(sys.argv[3]), build_parser().parse_args(["--profile", "turbo"]))
 assert (s["sampler"], s["inference_steps"]) == ("unipc", 8)
+from hallo_tpu_torch import data_preprocess, extract_meta_info
+from hallo_tpu_torch.data.datasets import FaceMaskDataset, batch_iterator
+clips = os.path.join(tmp, "clips")
+os.makedirs(clips)
+data_preprocess.WAV2VEC_CONFIG = WAV2VEC_CONFIGS["tiny"]
+writer = StreamingVideoWriter(os.path.join(clips, "v.mp4"), fps=25)
+writer.append(np.zeros((3, 64, 64, 3), np.uint8))
+writer.close()
+for step in ("1", "2"):
+    data_preprocess.main(["-i", clips, "-o", clips, "-s", step, "--size", "64",
+                          "--device", "cpu", "--wav2vec_model_path", tmp])
+meta = os.path.join(tmp, "meta1.json")
+assert len(extract_meta_info.main(["-i", clips, "--stage", "1", "-o", meta])) == 1
+item = next(batch_iterator(FaceMaskDataset([meta], sample_margin=1), 2))
+assert item["pixel_values"].shape == (2, 1, 64, 64, 3)
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "flax", "hallo_tpu")))
 """
@@ -140,8 +162,7 @@ def test_tiny_widths_match_jax_factory():
 # JAX-package config fields the port does not implement (at their defaults,
 # which are the reference's inference settings).
 NOT_PORTED = {
-    "UNetConfig": {"remat_inner": False,
-                   "use_linear_projection": False, "upcast_attention": False},
+    "UNetConfig": {"use_linear_projection": False, "upcast_attention": False},
     "SchedulerConfig": {"clip_sample": False},
 }
 
@@ -167,7 +188,7 @@ def test_config_copies_match_jax_package():
 
 
 def test_entry_points_default_to_the_card():
-    from hallo_tpu_torch import inference
+    from hallo_tpu_torch import data_preprocess, inference
     from hallo_tpu_torch.convert.onnx_torch import OnnxExecutor
     from hallo_tpu_torch.data.audio_processor import AudioProcessor
     from hallo_tpu_torch.data.face_analysis import FaceAnalyzer
@@ -188,3 +209,4 @@ def test_entry_points_default_to_the_card():
                MdxSeparator.__init__, train_stage1_process, train_stage2_process):
         assert inspect.signature(fn).parameters["device"].default == torch.device("cuda"), fn
     assert inference.build_parser().get_default("device") == "cuda"
+    assert data_preprocess.build_parser().get_default("device") == "cuda"

@@ -111,7 +111,7 @@ def test_static_denoiser_runs_one_frame_with_every_branch_off():
         for ours, theirs in ((pm.denoising_net.config, denoising_unet_config),
                              (pm.reference_net.config, reference_unet_config)):
             want = dataclasses.asdict(theirs(**TINY_UNET_KW, **overrides))
-            for field in ("remat_inner", "use_linear_projection", "upcast_attention"):
+            for field in ("use_linear_projection", "upcast_attention"):
                 want.pop(field)
             assert dataclasses.asdict(ours) == want
         names = [n for n, _ in pm.denoising_net.named_parameters()]

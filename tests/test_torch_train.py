@@ -521,10 +521,10 @@ def test_config_copies_match_jax_on_stage2_yaml():
     assert tconfig.to_container(ours) == jax_config.to_container(theirs)
     assert ours.solver.gradient_checkpointing is True and ours.data.n_sample_frames == 14
     kw = tconfig.to_container(ours.unet_additional_kwargs)
-    for extra in ({}, {"remat": True}):
+    for extra in ({}, {"remat": True}, {"remat": True, "remat_inner": True}):
         got = dataclasses.asdict(tconfig.unet_config_from_yaml_kwargs(kw, **extra))
         want = dataclasses.asdict(jax_config.unet_config_from_yaml_kwargs(
             jax_config.to_container(theirs.unet_additional_kwargs), **extra))
-        for field in ("remat_inner", "use_linear_projection", "upcast_attention"):
+        for field in ("use_linear_projection", "upcast_attention"):
             assert want.pop(field) is False
         assert got == want
