@@ -141,7 +141,21 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    U-Net as the vocal separator: every module loads 100%, named tensors hold the last file's
    values bit for bit, the separator runs, the mp4 holds 75 frames that
    move, the timing JSON holds every stage, K1-K4 launch; a VAE file with
-   its keys renamed must make the CLI raise before generation.
+   its keys renamed must make the CLI raise before generation;
+14. parallel (run between phases 6 and 7): one rank a card,
+   `max(1, device_count)` processes spawned with NCCL (`phase_parallel`),
+   each building the full-width models from phase 4's seed: one clip of
+   1.wav's windows (512^2, 16 + 2 frames, the steps of phase 4) through the
+   clip-parallel path against the plain clip, and phase 6's step (B 1,
+   14 + 2 frames, per-block checkpointing, AdamW) through ZeRO-2 against
+   the plain step; at one card bit for bit (the collectives at group size
+   1), with seconds, peak memory and the collectives' launches of each.
+   With 2 cards or more the clip at seq = world within PROFILE_RTOL, a
+   planted fault (the inflated GroupNorms' moments not all-reduced) that
+   must exceed it, and the step at data = world and at seq = world within
+   TRAIN_RTOL of the plain step on the same global batch (at 256^2). The
+   kernel phase holds K2 at the clip-parallel shapes too (level 0's sites
+   over 2 and 4 ranks, 16 + 2 frames, B 2 and 4).
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`;
@@ -153,11 +167,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime
 import gc
 import json
 import logging
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -165,6 +181,8 @@ import time
 import cv2
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing
 import torch.nn.functional as F
 from safetensors.torch import load_file, save_file
 
@@ -184,6 +202,8 @@ from hallo_tpu_torch.models import wav2vec as wav2vec_module
 from hallo_tpu_torch.ops import _build, flash, layout, temporal, winograd
 from hallo_tpu_torch.ops.attention import attention_reference
 from hallo_tpu_torch.ops.bench_temporal import timings
+from hallo_tpu_torch.parallel import collectives
+from hallo_tpu_torch.parallel.mesh import make_mesh
 from hallo_tpu_torch.pipelines.face_animate import (
     MODULE_NAMES, FaceAnimatePipeline, HalloModels, window_audio_embeddings)
 from hallo_tpu_torch.pipelines.bench_static import STATIC_2D
@@ -193,7 +213,7 @@ from hallo_tpu_torch.train.bench_trainer import trainer_config, write_trainer_cl
 from hallo_tpu_torch.train.stage1 import train_stage1_process
 from hallo_tpu_torch.train.stage2 import train_stage2_process
 from hallo_tpu_torch.train.state import (
-    AdamW, OptimizerConfig, TrainState, global_norm, stage1_trainable, stage2_trainable,
+    AdamW, OptimizerConfig, TrainState, Zero, global_norm, stage1_trainable, stage2_trainable,
     unfreeze)
 from hallo_tpu_torch.train.step import (
     TrainConfig, make_loss_fn, make_train_step, step_generator)
@@ -330,6 +350,11 @@ STATIC_RTOL = 5e-2
 # gradient reaches a K/V projection, nor the ReferenceNet's features through
 # the denoiser's K/V concat), must exceed it for the ReferenceNet.
 STAGE1_RTOL = TRAIN_RTOL
+
+# The parallel phase (`phase_parallel`): its ranks, one a card, write their
+# result under PARALLEL_DIR and must end within PARALLEL_TIMEOUT_S.
+PARALLEL_DIR = os.path.join(_build.BUILD_DIR, "parallel")
+PARALLEL_TIMEOUT_S = 600
 
 # Kernel tests of tests/test_torch_kernels.py that chip_smoke.py runs after
 # its kernel phase: the rings' 300-launch repeats of K1 (Lk 32, 4, level 0
@@ -712,6 +737,13 @@ def kernel_cases(dev):
         ("K2 training level 0 B 1 F 16 L 4096 C 320", 1, 16, 4096, 320),
     ):
         cases.append(frames("temporal_attn", label, b, f, l, c, 8))
+    # K2 under clip parallelism: level 0's sites split over seq = 2 and 4
+    # ranks, the whole clip's 16 + 2 frames at each, at the CFG batch 2 and
+    # stage2.yaml's training batch 4
+    for n in (2, 4):
+        for b in (2, 4):
+            cases.append(frames("temporal_attn", f"K2 seq {n}: level 0 B {b} F 18 L {4096 // n} "
+                                f"C 320", b, 18, 4096 // n, 320, 8))
     # K7's own test cases (tests/test_pallas_temporal.py), (B, F, heads, d, L)
     for b, f, heads, d, l in ((1, 6, 2, 8, 256), (2, 5, 2, 16, 200)):
         cases.append(frames("temporal_attn_packed", f"K7 B {b} F {f} heads {heads} d {d} L {l}",
@@ -2736,6 +2768,307 @@ def phase_cli(dev, pretrained: tuple) -> dict:
     return dict(counts=counts, timing=timing, seconds=cli_s, write_s=write_s)
 
 
+# --- the parallel phase ----------------------------------------------------
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def recorded_clip(pipe: FaceAnimatePipeline, inputs: dict) -> dict:
+    """One clip through `pipe`: the video, the latents its VAE decoder got
+    (this rank's frames), seconds and peak memory."""
+    vae, seen = pipe.models.vae, []
+    decode = vae.decode
+
+    def recording(z):
+        seen.append(z.unflatten(0, (1, -1)).clone())
+        return decode(z)
+
+    vae.decode = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        video = pipe(**inputs, seed=0)
+    finally:
+        del vae.decode
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(video=video, latents=seen[0], seconds=seconds,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def captured_step(models: HalloModels, trainable: dict, mesh, batch: dict,
+                  steps: int = 2) -> dict:
+    """`steps` stage-2 steps (phase 6's: AdamW at lr 1e-5, a one-step
+    warm-up, TrainConfig's dropouts drawn from the step generator) from the
+    models' weights, through ZeRO with a mesh: the first step's loss and
+    whole gradient (fp32, captured for the check), the masters after the
+    last step (the warm-up's first update moves no weight), both moved to
+    the host so that they hold no device memory in the next run, each
+    step's seconds and the peak memory of the steps after the first
+    (nothing captured there)."""
+    opt = AdamW(OptimizerConfig(learning_rate=1e-5, lr_warmup_steps=1))
+    captured = {}
+    if mesh is None:
+        state = TrainState.create(trainable, opt)
+        update = opt.update
+
+        def capture(grads, opt_state, params, **kw):
+            captured.setdefault("grads", {k: g.float().cpu() for k, g in grads.items()})
+            update(grads, opt_state, params, **kw)
+
+        opt.update = capture
+    else:
+        zero = Zero(mesh, trainable, opt)
+        state = zero.create(trainable)
+        update = zero.update
+
+        def capture(state_, shard):
+            if "grads" not in captured:
+                captured["grads"] = {k: g.cpu() for k, g in zero.gather_leaves(shard).items()}
+            update(state_, shard)
+
+        zero.update = capture
+    step = make_train_step(models, trainable, opt, TrainConfig(), mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, first = [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, step_generator(0, i, models.device))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if m["skipped"]:
+            raise RuntimeError(f"parallel phase: step {i} skipped ({m})")
+        if i == 0:
+            first = dict(loss=m["loss"], grad_norm=m["grad_norm"], grads=captured["grads"])
+            torch.cuda.reset_peak_memory_stats()
+    peak = torch.cuda.max_memory_allocated()
+    masters = state.state_dict()["params"] if mesh is not None else state.params
+    return dict(first, masters={k: v.cpu() for k, v in masters.items()}, seconds=seconds,
+                peak=peak)
+
+
+def rows_and_frames(batch: dict, mesh) -> dict:
+    """This rank's rows of a global stage-2 batch and its frames of them."""
+    n, d = batch["face_emb"].shape[0] // mesh.n_data, mesh.data_index
+    f = batch["pixel_values"].shape[1] // mesh.n_seq
+    frames = slice(mesh.seq_index * f, (mesh.seq_index + 1) * f)
+    out = {}
+    for k, v in batch.items():
+        if k == "masks":
+            out[k] = tuple(tuple(x[d * n:(d + 1) * n] for x in lvl) for lvl in v)
+        elif k in ("pixel_values", "audio_windows"):
+            out[k] = v[d * n:(d + 1) * n, frames]
+        else:
+            out[k] = v[d * n:(d + 1) * n]
+    return out
+
+
+def step_errors(got: dict, want: dict) -> tuple:
+    """(loss, gradient, masters) relative errors of two `captured_step`s."""
+    names = list(want["grads"])
+    flat = lambda d: torch.cat([d[k].float().flatten() for k in names])  # noqa: E731
+    return (abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            rel_err(flat(got["grads"]), flat(want["grads"])),
+            rel_err(flat(got["masters"]), flat(want["masters"])))
+
+
+# The parallel phase's sizes: the full-width models, phase 4's clip and
+# phase 6's step, and the smaller size of the comparisons at 2 cards or more
+PARALLEL_SHAPES = dict(scale="full", clip=16, size=512, train_frames=14, small_size=256)
+
+
+def parallel_checks(rank: int, world: int, dev, inputs: dict, steps: int,
+                    shapes: dict) -> dict:
+    """The parallel phase's work in one rank (see `phase_parallel`)."""
+    out = dict(world=world, backend=dist.get_backend())
+    models = build_models(shapes["scale"], device=dev, dtype=torch.bfloat16, seed=0,
+                          remat=True)
+    seq_mesh = make_mesh(n_data=1, n_seq=world)
+    data_mesh = seq_mesh if world == 1 else make_mesh(n_data=world, n_seq=1)
+    kw = dict(num_inference_steps=steps, clip_length=shapes["clip"], n_motion_frames=2)
+
+    # the clip: the plain pipeline (phase 4's), then the seq path (at one
+    # rank forced: its collectives at group size 1)
+    plain_pipe = FaceAnimatePipeline(models, **kw)
+    seq_pipe = FaceAnimatePipeline(models, mesh=seq_mesh, **kw)
+    seq_pipe.seq_group = seq_mesh.seq_group
+    plain = recorded_clip(plain_pipe, inputs)
+    collectives_before = dict(collectives.LAUNCHES)
+    seq = recorded_clip(seq_pipe, inputs)
+    out["clip_collectives"] = {k: v - collectives_before[k]
+                               for k, v in collectives.LAUNCHES.items()}
+    seq["latents"] = collectives.all_gather(seq["latents"], seq_mesh.seq_group, dim=1)
+    if world == 1:
+        same = torch.equal(seq["latents"], plain["latents"]) and np.array_equal(
+            seq["video"], plain["video"])
+        if not same:
+            raise RuntimeError("parallel phase: the seq path's clip at one rank is not the "
+                               "plain clip bit for bit")
+        out["clip_err"] = 0.0
+    else:
+        out["clip_err"] = rel_err(seq["latents"], plain["latents"])
+        if not out["clip_err"] <= PROFILE_RTOL:
+            raise RuntimeError(f"parallel phase: the clip at seq {world} disagrees "
+                               f"({out['clip_err']})")
+        real = layers.all_reduce_sum
+        layers.all_reduce_sum = lambda x, group: x  # the planted fault
+        try:
+            fault = recorded_clip(seq_pipe, inputs)["latents"]
+        finally:
+            layers.all_reduce_sum = real
+        fault = collectives.all_gather(fault, seq_mesh.seq_group, dim=1)
+        out["clip_fault_err"] = rel_err(fault, plain["latents"])
+        if not out["clip_fault_err"] > PROFILE_RTOL:
+            raise RuntimeError(f"parallel phase: the check misses GroupNorm moments not "
+                               f"all-reduced ({out['clip_fault_err']})")
+    # timed again, warm, in turns
+    seconds = dict(plain=[plain["seconds"]], seq=[seq["seconds"]])
+    for name in ("seq", "plain", "plain", "seq"):
+        seconds[name].append(recorded_clip(seq_pipe if name == "seq" else plain_pipe,
+                                           inputs)["seconds"])
+    out["clip_seconds"] = seconds
+    out["clip_peak"] = dict(plain=plain["peak"], seq=seq["peak"])
+    del plain, seq
+
+    # the step: phase 6's batch (B 1, 14 + 2 frames at 512^2, per-block
+    # checkpointing), plain and through ZeRO from the same weights
+    trainable = unfreeze(models.modules(), stage2_trainable)
+    init = {k: p.detach().clone() for k, p in trainable.items()}
+
+    def restore():
+        with torch.no_grad():
+            torch._foreach_copy_(list(trainable.values()), [init[k] for k in trainable])
+
+    # (at 2 cards or more, each rank's B 1 is its row of a global batch of
+    # B = world, the plain step its row alone: timed, not compared)
+    batch = synthetic_batch(models, world, shapes["size"], shapes["train_frames"], 2, seed=0,
+                            fixed=False)
+    batch = rows_and_frames(batch, data_mesh)
+    plain_step = captured_step(models, trainable, None, batch, steps=3)
+    restore()
+    before = dict(collectives.LAUNCHES)
+    zero_step = captured_step(models, trainable, data_mesh, batch, steps=3)
+    out["step_collectives"] = {k: (v - before[k]) / 3 for k, v in collectives.LAUNCHES.items()}
+    restore()
+    errs = step_errors(zero_step, plain_step)
+    same = zero_step["loss"] == plain_step["loss"] and all(
+        torch.equal(zero_step[part][k], plain_step[part][k])
+        for part in ("grads", "masters") for k in plain_step[part])
+    if world == 1 and not same:
+        raise RuntimeError(f"parallel phase: the ZeRO step at one rank is not the plain step "
+                           f"bit for bit (loss, gradient, masters {errs})")
+    out.update(step_errs=errs if world == 1 else None,
+               step_seconds=dict(plain=plain_step["seconds"], zero=zero_step["seconds"]),
+               step_peak=dict(plain=plain_step["peak"], zero=zero_step["peak"]))
+    del plain_step, zero_step
+    if world > 1:
+        # data = world and seq = world against the plain step on the same
+        # global batch, at 256^2 (the plain step at B = world fits one card)
+        for axis, mesh, b in (("data", data_mesh, world), ("seq", seq_mesh, 1)):
+            batch = synthetic_batch(models, b, shapes["small_size"], shapes["clip"], 2, seed=1,
+                                    fixed=False)
+            want = captured_step(models, trainable, None, batch)
+            restore()
+            got = captured_step(models, trainable, mesh, rows_and_frames(batch, mesh))
+            restore()
+            out[f"step_errs_{axis}"] = step_errors(got, want)
+            if not max(out[f"step_errs_{axis}"][:2]) <= TRAIN_RTOL:
+                raise RuntimeError(f"parallel phase: the step at {axis} = {world} disagrees "
+                                   f"({out[f'step_errs_{axis}']})")
+    return out
+
+
+def parallel_rank(rank: int, world: int, port: int, inputs: dict, steps: int,
+                  result_path: str, shapes: dict, device_type: str) -> None:
+    """One rank of the parallel phase, in a process of its own on card
+    `rank` (NCCL over tcp://localhost:`port`), or on the CPU with gloo for a
+    rehearsal (`device_type` "cpu")."""
+    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    dev = torch.device(device_type, rank) if device_type == "cuda" else torch.device("cpu")
+    if device_type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        out = parallel_checks(rank, world, dev, inputs, steps, shapes)
+        if rank == 0:
+            with open(result_path, "w") as fh:
+                json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(inputs: dict, steps: int, shapes: dict = PARALLEL_SHAPES,
+                   world: int = 0, device_type: str = "cuda") -> dict:
+    """Data and clip parallelism: `max(1, device_count)` ranks, one a card,
+    NCCL (`parallel_checks`). At every world size: one full-width clip
+    (512^2, 16 + 2 frames, bf16, `steps` DDIM steps) through the seq path
+    against the plain clip, and one full-width stage-2 step (phase 6's: B 1,
+    14 + 2 frames, per-block checkpointing, AdamW) through ZeRO against the
+    plain step; at one rank bit for bit (every collective still runs, at
+    group size 1). Seconds, peak memory and the collectives' launches of
+    each. With 2 cards or more: the clip at seq = world within PROFILE_RTOL
+    and a planted fault (the inflated GroupNorms' moments not all-reduced)
+    that must exceed it; the step at data = world and at seq = world against
+    the plain step on the same global batch at 256^2 within TRAIN_RTOL.
+    `shapes`, `world` and `device_type` serve a rehearsal on the CPU."""
+    world = world or max(1, torch.cuda.device_count())
+    log(f"parallel phase: world size {world}, backend "
+        f"{'nccl' if device_type == 'cuda' else 'gloo'}, one rank a card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    result_path = os.path.join(PARALLEL_DIR, "result.json")
+    if os.path.exists(result_path):
+        os.remove(result_path)
+    ctx = torch.multiprocessing.start_processes(
+        parallel_rank, args=(world, free_port(), inputs, steps, result_path, shapes,
+                             device_type), nprocs=world,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise RuntimeError(f"parallel phase: ranks alive after {PARALLEL_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    with open(result_path) as fh:
+        out = json.load(fh)
+    gib = 2**30
+    size, clip, frames = shapes["size"], shapes["clip"], shapes["train_frames"]
+    log(f"parallel clip at seq {world} ({size}^2, {clip} + 2 frames, {steps} DDIM steps): "
+        f"relative error {out['clip_err']:.3e} (0 = bit for bit); seconds (the first cold, "
+        f"then in turns seq, plain, plain, seq) plain "
+        f"{[round(x, 4) for x in out['clip_seconds']['plain']]}, seq "
+        f"{[round(x, 4) for x in out['clip_seconds']['seq']]}; peak plain "
+        f"{out['clip_peak']['plain'] / gib:.3f} GiB, seq {out['clip_peak']['seq'] / gib:.3f} "
+        f"GiB; collectives a clip {out['clip_collectives']}")
+    log(f"parallel step at data {world} (ZeRO-2, {size}^2, B 1 a rank, {frames} + 2 frames): "
+        f"loss, gradient, masters after 3 steps relative errors {out['step_errs']} (0 = bit for "
+        f"bit; None: not compared at 2 cards or more); seconds plain "
+        f"{[round(x, 4) for x in out['step_seconds']['plain']]}, ZeRO "
+        f"{[round(x, 4) for x in out['step_seconds']['zero']]}; peak of steps 2-3 plain "
+        f"{out['step_peak']['plain'] / gib:.3f} GiB, ZeRO {out['step_peak']['zero'] / gib:.3f} "
+        f"GiB; collectives a step {out['step_collectives']}")
+    for key in ("clip_fault_err", "step_errs_data", "step_errs_seq"):
+        if key in out:
+            log(f"parallel {key}: {out[key]}")
+    return out
+
+
 def profile_call(what: str, fn, out_path: str) -> list:
     """`fn` under torch.profiler: device time by kernel (top rows here, all
     rows to `out_path`) and the device's busy share of the wall time.
@@ -2833,9 +3166,12 @@ def main() -> None:
     phase_remat_inner(slice_["models"], dev, train)
     mark("train")
     launches = {"slice": slice_["counts"], "audio": audio["counts"], "train": train["counts"]}
-    del slice_  # the trainer builds its own models
+    one_clip = dict(slice_["inputs"], audio_windows=slice_["inputs"]["audio_windows"][:16])
+    del slice_  # the trainer and the parallel ranks build their own models
     gc.collect()
     torch.cuda.empty_cache()
+    phase_parallel(one_clip, args.steps)
+    mark("parallel")
     dataset = phase_dataset(dev)
     mark("dataset")
     phase_trainer(dev, dataset["meta"])

@@ -16,7 +16,11 @@ yielded as numpy batches in the layouts `train.step.make_train_step` takes:
 
 `batch_iterator` reads the clips ahead through the C++ prefetcher
 (`data/native_prefetch.py`), in epoch order, so the items, their random
-draws and the batches are the synchronous reads' bit for bit.
+draws and the batches are the synchronous reads' bit for bit. Under data
+and clip parallelism (`mesh`) every rank walks the same global order and
+draws, decodes only its rows of each global batch (the others' draws are
+taken from their files' array headers alone), and keeps its frames of
+them.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import json
 import queue
 import random
 import threading
+import zipfile
 from typing import Dict, Iterator, List
 
 import numpy as np
@@ -32,6 +37,20 @@ import numpy as np
 
 def _to_pm1(x: np.ndarray) -> np.ndarray:
     return x.astype(np.float32) / 255.0 * 2.0 - 1.0
+
+
+def npz_lengths(path: str, names) -> List[int]:
+    """The leading dimension of arrays `names` of an .npz file, read from the
+    arrays' headers alone (nothing is decompressed past them)."""
+    out = []
+    with zipfile.ZipFile(path) as zf:
+        for name in names:
+            with zf.open(f"{name}.npy") as fh:
+                version = np.lib.format.read_magic(fh)
+                read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                        else np.lib.format.read_array_header_2_0)
+                out.append(int(read(fh)[0][0]))
+    return out
 
 
 class FaceMaskDataset:
@@ -57,11 +76,8 @@ class FaceMaskDataset:
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         return self.assemble(np.load(self.clip_path(idx)))
 
-    def assemble(self, clip) -> Dict[str, np.ndarray]:
-        """Build the item from a clip's npz contents; the draws follow the
-        JAX package's order (reference, then target)."""
-        frames = clip["frames"]  # (T, H, W, 3) uint8
-        t = len(frames)
+    def _draws(self, t: int):
+        """(reference, target) frame indices of a clip of `t` frames."""
         ref_idx = self.rng.randrange(t)
         margin = min(self.sample_margin, t - 1)
         # the target at least `margin` away, wrapped (mask_image.py:103-112)
@@ -71,6 +87,17 @@ class FaceMaskDataset:
             tgt_idx = self.rng.randrange(0, ref_idx - margin)
         else:
             tgt_idx = self.rng.randrange(t)
+        return ref_idx, tgt_idx
+
+    def skip(self, path: str) -> None:
+        """Take the draws of the clip at `path` without building its item."""
+        self._draws(*npz_lengths(path, ("frames",)))
+
+    def assemble(self, clip) -> Dict[str, np.ndarray]:
+        """Build the item from a clip's npz contents; the draws follow the
+        JAX package's order (reference, then target)."""
+        frames = clip["frames"]  # (T, H, W, 3) uint8
+        ref_idx, tgt_idx = self._draws(len(frames))
         return dict(
             pixel_values=_to_pm1(frames[tgt_idx])[None],  # (1, H, W, 3)
             ref_pixels=_to_pm1(frames[ref_idx]),
@@ -109,16 +136,24 @@ class TalkingVideoDataset:
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         return self.assemble(np.load(self.clip_path(idx)))
 
+    def _draws(self, t: int):
+        """(window start, reference frame) of a clip of `t` frames."""
+        lo = self.n_motion_frames + self.audio_margin
+        hi = t - self.n_sample_frames - self.audio_margin
+        start = self.rng.randrange(lo, max(hi, lo + 1))
+        return start, self.rng.randrange(t)
+
+    def skip(self, path: str) -> None:
+        """Take the draws of the clip at `path` without building its item."""
+        self._draws(min(npz_lengths(path, ("frames", "audio_emb"))))
+
     def assemble(self, clip) -> Dict[str, np.ndarray]:
         """Build the item from a clip's npz contents."""
         frames = clip["frames"]  # (T, H, W, 3) uint8
         audio = clip["audio_emb"]  # (T, blocks, C)
         t = min(len(frames), len(audio))
         f, m, margin = self.n_sample_frames, self.n_motion_frames, self.audio_margin
-
-        lo = m + margin
-        hi = t - f - margin
-        start = self.rng.randrange(lo, max(hi, lo + 1))
+        start, ref_idx = self._draws(t)
         end = min(start + f, t - margin)
         idxs = np.arange(start, end)
         if len(idxs) < f:  # pad by repeating the last frame
@@ -129,7 +164,6 @@ class TalkingVideoDataset:
         centers = np.clip(centers, 0, t - 1)
         audio_windows = audio[centers]  # (F, 2m+1, blocks, C)
 
-        ref_idx = self.rng.randrange(t)
         motion = frames[max(start - m, 0):start]
         if len(motion) < m:
             motion = np.concatenate(
@@ -157,6 +191,7 @@ def batch_iterator(
     batch_size: int,
     seed: int = 0,
     prefetch: bool = True,
+    mesh=None,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Endless shuffling batch loader: one permutation per epoch, batches of
     `batch_size` items (a dataset smaller than a batch is sampled with
@@ -169,34 +204,55 @@ def batch_iterator(
     `dataset.assemble`, in that order and one batch ahead of the consumer:
     the thread is the only one to draw from the dataset's and the order's
     generators while the iterator runs. A file that cannot be read raises
-    here; there is no synchronous fallback."""
+    here; there is no synchronous fallback.
+
+    With a `mesh` (`parallel.mesh.Mesh`), the global batch is `batch_size`
+    x its data size (JAX's `train_bs * mesh.shape["data"]`,
+    scripts/train_stage2.py:179), walked in the same seeded order by every
+    rank: this rank builds its `batch_size` rows of each (the other rows'
+    draws are taken with `dataset.skip`, from their files' headers, so that
+    every rank draws what one process would) and keeps its 1/seq of the
+    frames of "pixel_values" and "audio_windows"."""
     if len(dataset) == 0:
         raise ValueError("batch_iterator: empty dataset")
     rng = np.random.default_rng(seed)
+    n_data, d = (mesh.n_data, mesh.data_index) if mesh is not None else (1, 0)
+    global_bs = batch_size * n_data
 
     def epoch_order():
         order = rng.permutation(len(dataset))
-        if batch_size > len(order):
-            reps = -(-batch_size // len(order))
+        if global_bs > len(order):
+            reps = -(-global_bs // len(order))
             order = np.concatenate(
                 [order] + [rng.permutation(len(dataset)) for _ in range(reps - 1)]
             )
-        return order[: len(order) - len(order) % batch_size]
+        return order[: len(order) - len(order) % global_bs]
+
+    def mine(pos: int) -> bool:
+        return d * batch_size <= pos % global_bs < (d + 1) * batch_size
 
     def stream() -> Iterator[Dict[str, np.ndarray]]:
-        """The items of every epoch, in order."""
+        """This rank's items of every epoch, in order."""
         while True:
             order = epoch_order()
             if not prefetch:
-                for j in order:
-                    yield dataset[int(j)]
+                for pos, j in enumerate(order):
+                    if mine(pos):
+                        yield dataset[int(j)]
+                    else:
+                        dataset.skip(dataset.clip_path(int(j)))
                 continue
             from hallo_tpu_torch.data.native_prefetch import FilePrefetcher
 
-            pf = FilePrefetcher([dataset.clip_path(int(j)) for j in order])
+            pf = FilePrefetcher([dataset.clip_path(int(j))
+                                 for pos, j in enumerate(order) if mine(pos)])
             try:
-                for clip in pf.iter_npz():
-                    yield dataset.assemble(clip)
+                clips = pf.iter_npz()
+                for pos, j in enumerate(order):
+                    if mine(pos):
+                        yield dataset.assemble(next(clips))
+                    else:
+                        dataset.skip(dataset.clip_path(int(j)))
             finally:
                 pf.close()
 
@@ -210,6 +266,9 @@ def batch_iterator(
                 )
             else:
                 batch[key] = np.stack([it[key] for it in items])
+                if mesh is not None and key in ("pixel_values", "audio_windows"):
+                    f = batch[key].shape[1] // mesh.n_seq
+                    batch[key] = batch[key][:, mesh.seq_index * f:(mesh.seq_index + 1) * f]
         return batch
 
     items = _in_background(stream(), depth=batch_size) if prefetch else stream()

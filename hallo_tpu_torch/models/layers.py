@@ -15,11 +15,13 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from hallo_tpu_torch.ops.flash import flash_attention_packed
+from hallo_tpu_torch.parallel.collectives import all_reduce_sum
 from hallo_tpu_torch.ops.temporal import temporal_attention
 
 
@@ -39,6 +41,7 @@ def group_norm(
     num_groups: int,
     eps: float,
     channel_dim: int = 1,
+    group=None,
 ) -> torch.Tensor:
     """GroupNorm whose statistics span every axis but the batch (axis 0).
 
@@ -46,7 +49,11 @@ def group_norm(
     with `channel_dim=2` for the inflated norm whose statistics span
     (F, H, W) (hallo_tpu layers.group_norm). Moments are one-pass fp32 sums;
     the per-(batch, channel) affine is rounded to x's dtype and applied in it,
-    as the JAX reference does."""
+    as the JAX reference does. With a process `group` (clip parallelism: the
+    frames split over its ranks), the fp32 (B, G) sums are all-reduced over
+    it and the count multiplied by its size before the division
+    (hallo_tpu/models/layers.py:66-70), so the statistics span the whole
+    clip."""
     shape = x.shape
     b, c = shape[0], shape[channel_dim]
     g = num_groups
@@ -54,8 +61,13 @@ def group_norm(
     xg = x.reshape(b, lead, g, c // g, -1)
     xf = xg.float()
     n = lead * (c // g) * xg.shape[-1]
-    mean = xf.sum(dim=(1, 3, 4)) / n  # (B, G)
-    ex2 = xf.square().sum(dim=(1, 3, 4)) / n
+    s1 = xf.sum(dim=(1, 3, 4))  # (B, G)
+    s2 = xf.square().sum(dim=(1, 3, 4))
+    if group is not None:
+        s1, s2 = all_reduce_sum(torch.stack([s1, s2]), group).unbind(0)
+        n *= dist.get_world_size(group)
+    mean = s1 / n
+    ex2 = s2 / n
     rstd = torch.rsqrt((ex2 - mean.square()).clamp_min(0.0) + eps)
     mean_c = mean.repeat_interleave(c // g, dim=1)  # (B, C)
     rstd_c = rstd.repeat_interleave(c // g, dim=1)
@@ -68,12 +80,13 @@ def group_norm(
 
 class GroupNorm(nn.GroupNorm):
     """nn.GroupNorm's parameters with `group_norm`'s numerics; `inflated`
-    takes a (B, F, C, H, W) video with statistics over (F, H, W)."""
+    takes a (B, F, C, H, W) video with statistics over (F, H, W), and over
+    the frames of every rank of `group` with one."""
 
-    def forward(self, x: torch.Tensor, inflated: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, inflated: bool = False, group=None) -> torch.Tensor:
         return group_norm(
             x, self.weight, self.bias, self.num_groups, self.eps,
-            channel_dim=2 if inflated else 1,
+            channel_dim=2 if inflated else 1, group=group,
         )
 
 

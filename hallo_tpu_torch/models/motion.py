@@ -7,7 +7,18 @@ afterwards. Parameters follow the reference's
 `temporal_transformer.*` keys; the PE table is computed, not stored. With
 `remat_inner`, each temporal attention and the feed-forward (over 4 chunks
 of the site axis) are recomputed on their own in the backward pass
-(hallo_tpu/models/motion.py:134-160)."""
+(hallo_tpu/models/motion.py:134-160).
+
+Clip parallelism (a process `group`, hallo_tpu's `seq_axis`): every other
+layer of the denoiser is frame-local, so the clip's frames are split over
+the group's ranks and only this module crosses them. After the per-frame
+GroupNorm and proj_in (which shrinks the channels first), an all_to_all
+turns this rank's frames at every site into every frame at this rank's
+1/n of the sites, (B, f, L, C') -> (B, f*n, L/n, C'); the motion-frame
+features are sliced to the same sites; the temporal blocks attend over the
+whole clip; the motion frames come off and a second all_to_all returns
+the frames before proj_out and the residual
+(hallo_tpu/models/motion.py:121-131, :163-167)."""
 
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from hallo_tpu_torch.models.layers import (
     maybe_checkpoint,
     sinusoidal_positions,
 )
+from hallo_tpu_torch.parallel.collectives import all_to_all, local_slice
 
 
 class TemporalAttention(TemporalSelfAttention):
@@ -100,10 +112,12 @@ class MotionModule(nn.Module):
         super().__init__()
         self.temporal_transformer = _TemporalTransformer(channels, cfg, remat_inner)
 
-    def forward(self, x: torch.Tensor, motion_feats: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, motion_feats: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
         """x (B, F, C, H, W); motion_feats (B, M, L, C) per-site ReferenceNet
-        motion-frame features, or None."""
+        motion-frame features (every site, on every rank), or None; `group`:
+        the ranks the clip's frames are split over (F is this rank's
+        share), or None."""
         tt = self.temporal_transformer
         b, f, c, h, w = x.shape
         l = h * w
@@ -116,12 +130,19 @@ class MotionModule(nn.Module):
         if motion_feats is not None and motion_feats.shape[1] == 0:
             motion_feats = None
         hs = prep(x)
+        if group is not None:
+            hs = all_to_all(hs, group, split_dim=2, concat_dim=1)  # (B, F*n, L/n, C')
         m = 0
         if motion_feats is not None:
             m = motion_feats.shape[1]
-            mf = motion_feats.to(x.dtype).transpose(2, 3).unflatten(3, (h, w))
-            hs = torch.cat([prep(mf), hs], dim=1)
+            mf = prep(motion_feats.to(x.dtype).transpose(2, 3).unflatten(3, (h, w)))
+            if group is not None:
+                mf = local_slice(mf, group, dim=2)
+            hs = torch.cat([mf, hs], dim=1)
         for block in tt.transformer_blocks:
             hs = block(hs)
-        hs = tt.proj_out(hs[:, m:])  # (B, F, L, C)
+        hs = hs[:, m:]
+        if group is not None:
+            hs = all_to_all(hs, group, split_dim=1, concat_dim=2)  # (B, F, L, C')
+        hs = tt.proj_out(hs)
         return x + hs.transpose(2, 3).unflatten(3, (h, w))

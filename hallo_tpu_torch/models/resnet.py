@@ -42,7 +42,9 @@ class Downsample(nn.Module):
 class ResnetBlock(nn.Module):
     """GN -> SiLU -> conv -> (+temb) -> GN -> SiLU -> conv -> +shortcut on
     (B, F, C, H, W). `inflated`: GroupNorm statistics span (F, H, W)
-    (reference InflatedGroupNorm); otherwise they are per frame."""
+    (reference InflatedGroupNorm), and the frames of every rank of `group`
+    under clip parallelism (hallo_tpu/models/resnet.py:86-91); otherwise
+    they are per frame."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
                  groups: int = 32, eps: float = 1e-6, inflated: bool = True):
@@ -56,17 +58,17 @@ class ResnetBlock(nn.Module):
         if in_channels != out_channels:
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
-    def _norm(self, norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    def _norm(self, norm: GroupNorm, x: torch.Tensor, group) -> torch.Tensor:
         if self.inflated:
-            return norm(x, inflated=True)
+            return norm(x, inflated=True, group=group)
         return unfold(norm(fold(x)), x.shape[1])
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: torch.Tensor, group=None) -> torch.Tensor:
         f = x.shape[1]
-        h = F.silu(self._norm(self.norm1, x))
+        h = F.silu(self._norm(self.norm1, x, group))
         h = unfold(self.conv1(fold(h)), f)
         h = h + self.time_emb_proj(F.silu(temb))[:, None, :, None, None]
-        h = F.silu(self._norm(self.norm2, h))
+        h = F.silu(self._norm(self.norm2, h, group))
         h = unfold(self.conv2(fold(h)), f)
         if hasattr(self, "conv_shortcut"):
             x = unfold(self.conv_shortcut(fold(x)), f)

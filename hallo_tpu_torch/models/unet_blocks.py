@@ -38,7 +38,9 @@ class Conditioning:
     """What every layer of one denoiser call sees besides its own features:
     context (B, T, Dc) identity tokens; audio_context (B, F, T, Da); masks
     (full, face, lip), each (B*F, L) at this block's depth; motion_scale
-    (3,); uncond_mask (B,); cfg_split: the batch is [uncond | cond]."""
+    (3,); uncond_mask (B,); cfg_split: the batch is [uncond | cond];
+    seq_group: the process group the clip's frames are split over (clip
+    parallelism), or None."""
 
     context: torch.Tensor
     audio_context: Optional[torch.Tensor] = None
@@ -46,6 +48,7 @@ class Conditioning:
     motion_scale: Optional[torch.Tensor] = None
     uncond_mask: Optional[torch.Tensor] = None
     cfg_split: bool = False
+    seq_group: Optional[object] = None
 
     def at_depth(self, masks: Masks) -> "Conditioning":
         return dataclasses.replace(self, masks=masks)
@@ -98,7 +101,7 @@ class _Layers(nn.Module):
 
     def layer(self, i, x, temb, cond, ref_feature, motion_feature):
         sub = partial(maybe_checkpoint, self.remat_inner)
-        x = sub(self.resnets[i], x, temb)
+        x = sub(self.resnets[i], x, temb, cond.seq_group)
         if hasattr(self, "attentions"):
             x = sub(self.attentions[i], x, ref_feature, cond.context, cond.uncond_mask,
                     cond.cfg_split)
@@ -108,7 +111,7 @@ class _Layers(nn.Module):
                     x, cond.audio_context,
                     *(cond.masks if cond.masks is not None else (None,) * 3))
         if hasattr(self, "motion_modules"):
-            x = self.motion_modules[i](x, motion_feature)
+            x = self.motion_modules[i](x, motion_feature, cond.seq_group)
         return x
 
 
@@ -151,7 +154,7 @@ class MidBlock(_Layers):
             None if ref_features is None else ref_features[0],
             None if motion_features is None else motion_features[0],
         )
-        return maybe_checkpoint(self.remat_inner, self.resnets[1], x, temb)
+        return maybe_checkpoint(self.remat_inner, self.resnets[1], x, temb, cond.seq_group)
 
 
 class UpBlock(_Layers):

@@ -121,6 +121,7 @@ class DenoisingUNet(nn.Module):
         uncond_mask: Optional[torch.Tensor] = None,
         cfg_split: bool = False,
         train: bool = False,
+        seq_group=None,
     ) -> torch.Tensor:
         """sample (B, F, C_in, H, W) noisy latents (B includes the CFG
         doubling); timesteps scalar or (B,); context (B, T, D) identity
@@ -136,7 +137,13 @@ class DenoisingUNet(nn.Module):
         recomputed in the backward pass (JAX's `maybe_remat`); with
         `config.remat_inner`, each sub-layer inside a block is too (JAX's
         `inner_remat`), the motion module through its temporal attentions
-        and feed-forward chunks (unet_blocks.py)."""
+        and feed-forward chunks (unet_blocks.py).
+
+        With `seq_group` (clip parallelism, hallo_tpu's `seq_axis`), F is
+        this rank's share of the clip's frames, and every per-frame input
+        (sample, audio_context, face_cond, masks) holds those frames alone;
+        the inflated GroupNorms all-reduce their moments over the group and
+        the motion modules exchange frames for sites with all_to_all."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         b, f = sample.shape[:2]
@@ -164,7 +171,7 @@ class DenoisingUNet(nn.Module):
         if audio_context is not None:
             audio_context = audio_context.to(dtype)
         cond = Conditioning(context.to(dtype), audio_context, None, motion_scale,
-                            uncond_mask, cfg_split)
+                            uncond_mask, cfg_split, seq_group)
 
         def at(depth):
             return cond.at_depth(None if masks is None else masks[depth])
@@ -186,6 +193,7 @@ class DenoisingUNet(nn.Module):
             x = run(blk, x, block_skips, temb, at(3 - i), feats(f"up_{i}", attn),
                     mfeats(f"up_{i}", "up", attn))
 
-        x = F.silu(self.conv_norm_out(x, inflated=True) if cfg.use_inflated_groupnorm
+        x = F.silu(self.conv_norm_out(x, inflated=True, group=seq_group)
+                   if cfg.use_inflated_groupnorm
                    else unfold(self.conv_norm_out(fold(x)), f))
         return unfold(self.conv_out(fold(x)), f)

@@ -10,6 +10,12 @@ DPM-Solver++ (2M) or UniPC and optionally thinned by the step and CFG caches
 motion frames. `__call__` slides that clip program over the audio windows,
 dispatching clip c+1 before it fetches clip c's frames.
 
+Clip parallelism (a mesh whose "seq" axis has more than one rank): each
+rank denoises its share of the clip's frames, and the denoiser's inflated
+GroupNorms and motion modules exchange what crosses frames
+(models/motion.py); the VAE encode, the ReferenceNet and the conditioning
+stay replicated, and each rank decodes its frames, which are then gathered.
+
 Public layouts are the JAX package's: pixels (B, H, W, 3) in [-1, 1],
 latents (B, F, H/8, W/8, 4). Inside, tensors are NCHW.
 """
@@ -22,6 +28,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hallo_tpu_torch.config import (
     AudioProjConfig,
@@ -38,6 +45,7 @@ from hallo_tpu_torch.models.projections import AudioProj, ImageProj
 from hallo_tpu_torch.models.unet_denoise import DenoisingUNet
 from hallo_tpu_torch.models.unet_ref import ReferenceNet
 from hallo_tpu_torch.models.vae import AutoencoderKL
+from hallo_tpu_torch.parallel.collectives import all_gather, all_reduce_sum, local_slice
 
 MaskPyramid = Tuple[Tuple[np.ndarray, np.ndarray, np.ndarray], ...]
 
@@ -130,6 +138,17 @@ class _Phases:
         self.t = now
 
 
+def _relative_change(lat: torch.Tensor, anchor: torch.Tensor, group) -> torch.Tensor:
+    """mean |lat - anchor| / (mean |anchor| + 1e-8), the dynamic step
+    cache's score; with a `group`, over the frames of all its ranks (sums
+    all-reduced), so that every rank decides alike."""
+    if group is None:
+        return (lat - anchor).abs().mean() / (anchor.abs().mean() + 1e-8)
+    sums = all_reduce_sum(torch.stack([(lat - anchor).abs().sum(), anchor.abs().sum()]), group)
+    n = lat.numel() * dist.get_world_size(group)
+    return (sums[0] / n) / (sums[1] / n + 1e-8)
+
+
 def _half(tree, b: int):
     """The CFG-cond half (rows b:) of a tensor, a list or a dict of lists."""
     if isinstance(tree, dict):
@@ -158,6 +177,8 @@ class FaceAnimatePipeline:
         cfg_cache_cooldown: Optional[int] = None,
         timestep_schedule: str = "trailing",
         schedule_rho: float = 1.0,
+        mesh=None,
+        seq_axis: str = "seq",
     ):
         """`legacy_context_tiling=True` tiles the identity tokens over the
         ReferenceNet batch the way the reference does
@@ -178,12 +199,27 @@ class FaceAnimatePipeline:
         Both compose with `step_cache` None or "dynamic", not "uniform".
 
         `sampler` ("ddim", "dpm++2m", "unipc"), `timestep_schedule`
-        ("trailing" or "logsnr") and `schedule_rho`: `make_sampler`'s."""
+        ("trailing" or "logsnr") and `schedule_rho`: `make_sampler`'s.
+
+        `mesh` (`parallel.mesh.Mesh`) whose `seq_axis` has more than one
+        rank: each denoise step runs clip-parallel over that axis's group,
+        this rank's `clip_length / n` frames of the latents, audio tokens,
+        face condition and masks (hallo_tpu/pipelines/face_animate.py:
+        202-259, :441-501); the dynamic step cache decides from scores
+        all-reduced over the group, so every rank takes the same steps.
+        With one rank on the axis the mesh is dropped, as in JAX
+        (`seq_group` is then None)."""
         self.models = models
         self.guidance_scale = float(guidance_scale)
         self.clip_length = clip_length
         self.n_motion_frames = n_motion_frames
         self.legacy_context_tiling = legacy_context_tiling
+        self.seq_group = None
+        if mesh is not None and mesh.shape[seq_axis] > 1:
+            if clip_length % mesh.shape[seq_axis]:
+                raise ValueError(f"clip_length={clip_length} does not split over "
+                                 f"{seq_axis}={mesh.shape[seq_axis]}")
+            self.seq_group = mesh.group(seq_axis)
         if step_cache in ("", "off", "none", "exact"):
             step_cache = None
         if step_cache not in (None, "uniform", "dynamic"):
@@ -233,6 +269,11 @@ class FaceAnimatePipeline:
         dev = m.device
         phases = _Phases(timings, dev)
         b, one_m, hp, wp = ref_pixels.shape[:4]
+        group = self.seq_group
+        if group is not None:
+            # this rank's frames of every per-frame input
+            latents = local_slice(latents, group, dim=1)
+            audio_windows = local_slice(audio_windows, group, dim=1)
         f = latents.shape[1]
 
         # --- VAE-encode reference + motion frames (posterior mean) ---
@@ -275,7 +316,8 @@ class FaceAnimatePipeline:
             # cfg_split: the uncond half runs plain self-attention and the
             # zero-audio fast path
             out = den(lat.repeat(2, 1, 1, 1, 1), t, context, ref_feats, motion_feats,
-                      audio_tokens, face_cond, masks_cfg, motion_scale, None, cfg_split=True)
+                      audio_tokens, face_cond, masks_cfg, motion_scale, None, cfg_split=True,
+                      seq_group=group)
             return out[:b], out[b:]
 
         def run_step(t, lat):
@@ -298,7 +340,8 @@ class FaceAnimatePipeline:
                     un, co = run_halves(t, lat)
                     un, co, kind = un.float(), co.float(), "full"
                 else:
-                    co = den(lat, t, *cond, motion_scale, None, cfg_split=False).float()
+                    co = den(lat, t, *cond, motion_scale, None, cfg_split=False,
+                             seq_group=group).float()
                     un, kind = u_prev, "cond"
                 return un + float(np.float32(guid_w[i])) * (co - un), un, kind
 
@@ -314,7 +357,7 @@ class FaceAnimatePipeline:
             if self.allow is not None and self.allow[i]:
                 # The dynamic criterion, in fp32 as in the JAX package; the
                 # host needs the decision, so this step synchronises once.
-                diff = (lat - anchor).abs().mean() / (anchor.abs().mean() + 1e-8)
+                diff = _relative_change(lat, anchor, group)
                 score = (accum + diff).item()
                 scores.append(score)
                 reuse = score < thresh
@@ -338,11 +381,14 @@ class FaceAnimatePipeline:
             if self.allow is not None:
                 timings.setdefault("step_cache_score", []).extend(scores)
 
-        # --- batched VAE decode -> uint8; motion carry from the uint8 ---
+        # --- batched VAE decode -> uint8 (each rank its frames, gathered);
+        # motion carry from the uint8 ---
         pix = m.vae.decode(lat.flatten(0, 1))  # (B*F, 3, H, W)
         pix = torch.clamp(pix.float() / 2 + 0.5, 0.0, 1.0)
         frames = torch.round(pix * 255.0).to(torch.uint8)
         frames = frames.permute(0, 2, 3, 1).unflatten(0, (b, f))
+        if group is not None:
+            frames = all_gather(frames, group, dim=1)
         next_motion = frames[:, -self.n_motion_frames:].float() / 127.5 - 1.0
         phases.mark("vae_decode")
         return frames, next_motion

@@ -33,7 +33,7 @@ take about 26 segments.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -159,14 +159,20 @@ class AdamW8bit(AdamW):
     `mu_q`, `nu_q` int8 (rows, BLOCK), `mu_scale`, `nu_hi` fp32 (rows,), and
     `rows`, each quantised leaf's first row."""
 
-    def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-        small = {k: p for k, p in params.items() if p.numel() < BLOCK}
-        state = super().init(small)
+    def init(self, params: Mapping[str, torch.Tensor],
+             sizes: Optional[Mapping[str, int]] = None) -> Dict[str, Any]:
+        """The state of `params`; `sizes`: the element count of the leaf each
+        tensor is a piece of (a ZeRO shard's, whose pieces start on block
+        boundaries of their leaves): a piece of a leaf of at least `BLOCK`
+        elements is quantised, whatever its own size."""
+        quantised = {k for k, p in params.items()
+                     if (sizes[k] if sizes is not None else p.numel()) >= BLOCK}
+        state = super().init({k: p for k, p in params.items() if k not in quantised})
         if self.cfg.gradient_accumulation_steps > 1:
             state["acc"] = {k: torch.zeros_like(p) for k, p in params.items()}
         rows, n = {}, 0
         for k, p in params.items():
-            if p.numel() >= BLOCK:
+            if k in quantised:
                 rows[k] = n
                 n += -(-p.numel() // BLOCK)
         dev = next(iter(params.values())).device if params else torch.device("cpu")
@@ -259,3 +265,41 @@ class AdamW8bit(AdamW):
             torch._foreach_add_(us, ps, alpha=cfg.weight_decay)
             torch._foreach_mul_(us, -lr)
             torch._foreach_add_(ps, us)
+
+
+# ZeRO: the flat stores of a shard's pieces and of the whole leaves, in
+# whole blocks (a piece starts on a block boundary of its leaf, so its
+# blocks are the leaf's blocks).
+
+_STORES = (("mu_q", 0), ("mu_scale", 1.0), ("nu_q", 0), ("nu_hi", float("-inf")))
+
+
+def gather_q8(shard_q8: Mapping[str, Any], plan, pieces, gather: Callable,
+              full_q8: Dict[str, Any]) -> None:
+    """Fill `full_q8` (the unsharded layout, `AdamW8bit.init` of the whole
+    leaves) from every rank's `shard_q8` (its pieces' stores, keyed by piece
+    key): each rank lays its pieces' rows out at their plan rows, `gather`
+    (an all_gather over the shards, dim 0) concatenates the shards."""
+    for store, fill in _STORES:
+        src = shard_q8[store]
+        local = src.new_full((plan.shard_rows,) + tuple(src.shape[1:]), fill)
+        for p in pieces:
+            if p.key in shard_q8["rows"]:
+                r0, n = shard_q8["rows"][p.key], -(-(p.stop - p.start) // BLOCK)
+                local[p.offset // BLOCK:p.offset // BLOCK + n] = src[r0:r0 + n]
+        full = gather(local)
+        for i, name in enumerate(plan.names):
+            if name in full_q8["rows"]:
+                r0, n = full_q8["rows"][name], -(-_numel(plan.shapes[i]) // BLOCK)
+                full_q8[store][r0:r0 + n] = full[plan.first_rows[i]:plan.first_rows[i] + n]
+
+
+def shard_q8(full_q8: Mapping[str, Any], pieces, shard_q8: Dict[str, Any]) -> None:
+    """Fill `shard_q8` (a shard's stores, `AdamW8bit.init` of its pieces)
+    from the unsharded `full_q8`: each piece's rows of its leaf's rows."""
+    for p in pieces:
+        if p.key in shard_q8["rows"]:
+            src = full_q8["rows"][p.name] + p.start // BLOCK
+            dst, n = shard_q8["rows"][p.key], -(-(p.stop - p.start) // BLOCK)
+            for store, _ in _STORES:
+                shard_q8[store][dst:dst + n] = full_q8[store][src:src + n]

@@ -1,8 +1,10 @@
-"""Stage-2 training on one card: the motion and audio modules and the audio
-projection are trained; the stage-1 networks stay frozen (counterpart of
+"""Stage-2 training: the motion and audio modules and the audio projection
+are trained; the stage-1 networks stay frozen (counterpart of
 scripts/train_stage2.py; reference scripts/train_stage2.py:421-959).
 
     python -m hallo_tpu_torch.train.stage2 --config configs/train/stage2.yaml
+    torchrun --standalone --nproc_per_node N -m hallo_tpu_torch.train.stage2 \
+        --config configs/train/stage2.yaml
 
 The config is the JAX trainer's YAML. The pretrained files that exist are
 laid over the random initialisation (`base_model_path`, `vae_model_path`,
@@ -15,9 +17,15 @@ directory (`stage1_ckpt_dir`, the `final_{module}` exports of
 backward pass and, unless `solver.gradient_checkpointing_inner` is false,
 each sub-layer inside a block too (`UNetConfig.remat_inner`): that is what
 fits the YAML's `data.train_bs: 4` at 512^2 on one 80 GB H100. Clips are
-read ahead by the C++ prefetcher (`data/native_prefetch.py`). Not ported:
-the mesh, clip and tensor parallelism and ZeRO (the trainer runs on one
-device).
+read ahead by the C++ prefetcher (`data/native_prefetch.py`).
+
+Under torchrun, one rank a card: the mesh of `parallel_config`
+(configs/parallel.yaml by default) splits the ranks into data x seq;
+`data.train_bs` is each data rank's batch (the global batch is train_bs x
+data, as in JAX), the seq ranks split each clip's frames (clip
+parallelism), the optimizer state is ZeRO-2 sharded over the data ranks
+(`zero_optimizer_sharding`), and rank 0 writes the files (train/loop.py).
+Not ported: tensor parallelism (`mesh.model > 1` raises).
 """
 
 from __future__ import annotations
@@ -27,14 +35,17 @@ import logging
 import os
 
 import torch
+import torch.distributed as dist
 
 from hallo_tpu_torch import config as cfglib
 from hallo_tpu_torch.config import SchedulerConfig, unet_config_from_yaml_kwargs
 from hallo_tpu_torch.data.datasets import TalkingVideoDataset, batch_iterator
 from hallo_tpu_torch.pipelines.face_animate import HalloModels
 from hallo_tpu_torch.train.loop import (
-    checkpointing, compute_dtype, optimizer_config, overlay_pretrained, train_loop)
-from hallo_tpu_torch.train.state import TrainState, make_optimizer, stage2_trainable, unfreeze
+    barrier, checkpointing, compute_dtype, is_main, optimizer_config, overlay_pretrained,
+    parallel_setup, train_loop)
+from hallo_tpu_torch.train.state import (
+    TrainState, Zero, make_optimizer, stage2_trainable, unfreeze)
 from hallo_tpu_torch.train.step import TrainConfig, make_train_step
 from hallo_tpu_torch.utils import checkpoint as ckpt
 
@@ -63,14 +74,17 @@ def train_stage2_process(cfg, device: torch.device = torch.device("cuda")) -> Tr
     """Train for `solver.max_train_steps` steps (resuming from the latest
     checkpoint when `resume_from_checkpoint: latest`), write checkpoint-N
     every `checkpointing_steps`, log metrics.jsonl, render validation videos
-    every `val.validation_steps`, export final_net/."""
-    device = torch.device(device)
+    every `val.validation_steps`, export final_net/. Under torchrun, on this
+    rank's card and share of the mesh (see the module docstring)."""
+    device, mesh, settings = parallel_setup(cfg, device)
     exp_dir = os.path.join(str(cfg.output_dir), str(cfg.exp_name))
     os.makedirs(exp_dir, exist_ok=True)
     solver = cfg.solver
     seed = int(cfg.seed)
 
     f, m = int(cfg.data.n_sample_frames), int(cfg.data.n_motion_frames)
+    if mesh is not None and f % mesh.n_seq:
+        raise ValueError(f"data.n_sample_frames={f} does not split over seq={mesh.n_seq}")
     unet_kwargs = cfglib.to_container(cfg.unet_additional_kwargs)
     den_cfg = unet_config_from_yaml_kwargs(unet_kwargs, **checkpointing(solver))
     ref_cfg = unet_config_from_yaml_kwargs(
@@ -81,7 +95,8 @@ def train_stage2_process(cfg, device: torch.device = torch.device("cuda")) -> Tr
         from hallo_tpu_torch.utils.factory import TINY_AUX
 
         aux = TINY_AUX
-    models = HalloModels.create(ref_cfg, den_cfg, device=device, dtype=compute_dtype(solver),
+    models = HalloModels.create(ref_cfg, den_cfg, device=device,
+                                dtype=compute_dtype(solver, settings["mixed_precision"]),
                                 seed=seed, **aux)
     # SD-1.5, AnimateDiff and the VAE, then the stage-1 exports
     overlay_pretrained(models, cfg, {"base_model_path": "base_model_path",
@@ -104,12 +119,14 @@ def train_stage2_process(cfg, device: torch.device = torch.device("cuda")) -> Tr
         noise_offset=float(cfg.noise_offset),
         snr_gamma=float(cfg.snr_gamma),
         scheduler=SchedulerConfig(beta_schedule="scaled_linear"),
-    ))
+    ), mesh=mesh)
+    zero = (Zero(mesh, trainable, opt, shard=settings["zero_optimizer_sharding"])
+            if mesh is not None else None)
 
     dataset = TalkingVideoDataset(
         list(cfg.data.meta_paths), n_sample_frames=f, n_motion_frames=m,
         audio_margin=int(cfg.data.audio_margin), seed=seed)
-    batches = batch_iterator(dataset, int(cfg.data.train_bs))
+    batches = batch_iterator(dataset, int(cfg.data.train_bs), mesh=mesh)
 
     def validate(step: int) -> None:
         """A video of the first clip (reference train_stage2.py:250-418).
@@ -130,10 +147,12 @@ def train_stage2_process(cfg, device: torch.device = torch.device("cuda")) -> Tr
                 "num_inference_steps", 40)),
             seed=seed, n_motion_frames=m)
 
-    state = train_loop(cfg, device, trainable, opt, step_fn, batches, exp_dir, validate)
+    state = train_loop(cfg, device, trainable, opt, step_fn, batches, exp_dir, validate, zero)
     # the fused final export (the reference's net-N.pth, train_stage2.py:944-953)
-    ckpt.save_params(os.path.join(exp_dir, "final_net"),
-                     {k: getattr(models, k) for k in EXPORTED})
+    if is_main(mesh):
+        ckpt.save_params(os.path.join(exp_dir, "final_net"),
+                         {k: getattr(models, k) for k in EXPORTED})
+    barrier(mesh)
     logger.info("stage 2 done")
     return state
 
@@ -144,7 +163,11 @@ def main() -> None:
     parser.add_argument("--config", default="configs/train/stage2.yaml")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args()
-    train_stage2_process(cfglib.load_config(args.config), device=torch.device(args.device))
+    try:
+        train_stage2_process(cfglib.load_config(args.config), device=torch.device(args.device))
+    finally:
+        if dist.is_initialized():  # joined under torchrun
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

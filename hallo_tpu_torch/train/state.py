@@ -25,9 +25,13 @@ The masters, moments and accumulator are updated in place. With
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping
+import math
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import torch
+
+from hallo_tpu_torch.parallel import collectives
+from hallo_tpu_torch.parallel.mesh import Mesh, ZeroPlan, zero_plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +105,11 @@ class AdamW:
         frac = 1.0 - min(max(count, 0), warmup) / warmup
         return (0.0 - lr) * frac + lr
 
-    def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    def init(self, params: Mapping[str, torch.Tensor],
+             sizes: Optional[Mapping[str, int]] = None) -> Dict[str, Any]:
+        """The state of `params`. `sizes`: the element count of the leaf
+        each tensor is a piece of (a ZeRO shard's); AdamW's state does not
+        depend on it."""
         state: Dict[str, Any] = dict(
             count=0,
             mu={k: torch.zeros_like(p) for k, p in params.items()},
@@ -113,10 +121,13 @@ class AdamW:
         return state
 
     def update(self, grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
-               params: Dict[str, torch.Tensor]) -> None:
+               params: Dict[str, torch.Tensor],
+               norm_fn: Callable[[Sequence[torch.Tensor]], torch.Tensor] = global_norm) -> None:
         """Step the fp32 `params` in place with `grads` (any float dtype,
         upcast per tensor). Each operation runs over every tensor at once
-        (`torch._foreach_*`)."""
+        (`torch._foreach_*`). `norm_fn`: the global norm of the (accumulated)
+        gradients, in the order of `params`, for the clip (`Zero.norm` over a
+        shard's pieces)."""
         cfg = self.cfg
         k = cfg.gradient_accumulation_steps
         names = list(params)
@@ -131,7 +142,7 @@ class AdamW:
                 state["mini_step"] = n + 1
                 return
             gs = accs
-        norm = float(global_norm(gs))
+        norm = float(norm_fn(gs))
         if not norm < cfg.max_grad_norm:
             gs = torch._foreach_div(gs, norm)
             torch._foreach_mul_(gs, cfg.max_grad_norm)
@@ -210,3 +221,195 @@ class TrainState:
     def from_state_dict(cls, sd: Mapping[str, Any]) -> "TrainState":
         return cls(step=int(sd["step"]), params=dict(sd["params"]),
                    opt_state=dict(sd["opt_state"]))
+
+
+# ZeRO-2 (the reference's DeepSpeed zero_stage: 2, accelerate_config.yaml;
+# JAX's zero_shard_tree, hallo_tpu/parallel/mesh.py:115-138)
+
+ZERO_BLOCK = 256  # the 8-bit AdamW's block (adam8bit.BLOCK): shards of whole blocks
+
+
+@dataclasses.dataclass
+class ShardedTrainState(TrainState):
+    """A `TrainState` of which this rank holds one ZeRO shard: `params` are
+    views of `flat` (this rank's fp32 masters) keyed by piece (`Piece.key`),
+    `opt_state` the optimizer's state over those pieces. `write_to`
+    all-gathers the parameters into the model and `state_dict` gathers the
+    single-card format on every rank (collectives: every rank of the data
+    group calls them)."""
+
+    zero: Optional["Zero"] = None
+    flat: Optional[torch.Tensor] = None
+
+    def write_to(self, trainable: Mapping[str, torch.nn.Parameter]) -> None:
+        self.zero.write_params(self.flat, trainable)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return self.zero.gathered_state_dict(self)
+
+
+class Zero:
+    """ZeRO-2 over the mesh's data group: the gradients are reduce-scattered
+    into flat per-rank shards (`zero_plan`: whole blocks of `ZERO_BLOCK`
+    elements), each rank keeps and steps only its shard of the fp32 masters
+    and of the optimizer's moments (the 8-bit AdamW's codes and scales
+    included), and the parameters are all-gathered after the update in the
+    model's dtype. With `shard=False` (parallel.yaml's
+    `zero_optimizer_sharding: false`) every rank holds everything and the
+    gradients are all-reduced.
+
+    The gradient of the step is the mean over every rank of the mesh of the
+    gradients of its local loss (the mean over its samples and frames): the
+    sum over the seq ranks of a clip's frames, averaged over the data ranks
+    and the seq ranks, is the gradient of JAX's pmean'd global loss
+    (hallo_tpu/train/step.py:258-296). Gradient accumulation accumulates
+    shards."""
+
+    def __init__(self, mesh: Mesh, trainable: Mapping[str, torch.nn.Parameter], opt: AdamW,
+                 shard: bool = True):
+        self.mesh, self.opt = mesh, opt
+        self.group = mesh.data_group
+        n = mesh.n_data if shard else 1
+        self.plan: ZeroPlan = zero_plan({k: p.shape for k, p in trainable.items()}, n,
+                                        ZERO_BLOCK)
+        self.pieces = self.plan.pieces(mesh.data_index if shard else 0)
+        if not self.pieces:
+            raise ValueError(f"ZeRO over {n} ranks: shards of {self.plan.shard_rows} blocks "
+                             f"leave rank {mesh.data_index}'s empty (too few parameters)")
+        self.leaf_index = {name: i for i, name in enumerate(self.plan.names)}
+        dtypes = {p.dtype for p in trainable.values()}
+        if len(dtypes) != 1:
+            raise ValueError(f"ZeRO needs one parameter dtype, got {dtypes}")
+        self.dtype = dtypes.pop()
+        self.device = next(iter(trainable.values())).device
+        self.sizes = {p.key: math.prod(self.plan.shapes[self.leaf_index[p.name]])
+                      for p in self.pieces}
+
+    def _views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {p.key: flat[p.offset:p.offset + p.stop - p.start] for p in self.pieces}
+
+    def _leaf_views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = {}
+        for i, name in enumerate(self.plan.names):
+            a, b = self.plan.leaf_range(i)
+            out[name] = flat[a:b].view(self.plan.shapes[i])
+        return out
+
+    def _gather(self, flat: torch.Tensor) -> torch.Tensor:
+        if self.plan.n_shards == 1:
+            return flat
+        return collectives.all_gather(flat, self.group, dim=0)
+
+    def create(self, trainable: Mapping[str, torch.nn.Parameter]) -> ShardedTrainState:
+        """The state at step 0: this rank's shard of the model's parameters."""
+        flat = torch.zeros(self.plan.shard_numel, device=self.device)
+        params = self._views(flat)
+        with torch.no_grad():
+            for p in self.pieces:
+                params[p.key].copy_(trainable[p.name].detach().reshape(-1)[p.start:p.stop])
+        return ShardedTrainState(0, params, self.opt.init(params, self.sizes), self, flat)
+
+    def reduce(self, grads: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The step's gradient (`grads`: this rank's, of its local loss),
+        averaged over the mesh (see the class docstring): this rank's shard,
+        fp32, keyed by piece."""
+        full = torch.zeros(self.plan.numel, device=self.device)
+        views = self._leaf_views(full)
+        torch._foreach_copy_([views[k] for k in self.plan.names],
+                             [grads[k] for k in self.plan.names])
+        n_data, n_seq = self.mesh.n_data, self.mesh.n_seq
+        if self.plan.n_shards > 1:
+            shard = collectives.reduce_scatter_sum(full, self.group)
+        else:
+            shard = collectives.all_reduce_sum_(full, self.group)
+        if n_seq > 1:
+            collectives.all_reduce_sum_(shard, self.mesh.seq_group)
+        if n_data * n_seq > 1:
+            shard.div_(n_data * n_seq)
+        return self._views(shard)
+
+    def norm(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global norm of a gradient given as this shard's pieces (in
+        piece order): each leaf's norm from its pieces' squared norms summed
+        over the shards, then the norm of those. A leaf held whole gives its
+        own norm bit for bit (sqrt(x * x) = x in binary floating point); with
+        one shard this is `global_norm`."""
+        if self.plan.n_shards == 1:
+            return global_norm(tensors)
+        norms = torch._foreach_norm(list(tensors), 2, dtype=torch.float32)
+        sq = torch.zeros(len(self.plan.names), device=self.device)
+        idx = torch.tensor([self.leaf_index[p.name] for p in self.pieces], device=self.device)
+        sq.index_put_((idx,), torch.stack(norms).square())
+        collectives.all_reduce_sum_(sq, self.group)
+        return torch.linalg.vector_norm(sq.sqrt())
+
+    def update(self, state: ShardedTrainState, shard_grads: Mapping[str, torch.Tensor]) -> None:
+        """Step this rank's masters and moments with its gradient shard."""
+        self.opt.update(shard_grads, state.opt_state, state.params, norm_fn=self.norm)
+
+    @torch.no_grad()
+    def write_params(self, flat: torch.Tensor,
+                     trainable: Mapping[str, torch.nn.Parameter]) -> None:
+        """All-gather the masters in the parameters' dtype into the model."""
+        full = self._gather(flat.to(self.dtype))
+        views = self._leaf_views(full)
+        torch._foreach_copy_([trainable[k] for k in self.plan.names],
+                             [views[k] for k in self.plan.names])
+
+    def gather_leaves(self, pieces: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole leaves from every rank's pieces of them (a dict that holds a
+        subset of the leaves, as the 8-bit AdamW's fp32 moments, gives that
+        subset)."""
+        dtype = next(iter(pieces.values())).dtype if pieces else torch.float32
+        flat = torch.zeros(self.plan.shard_numel, dtype=dtype, device=self.device)
+        present = torch.zeros(len(self.plan.names), device=self.device)
+        for p in self.pieces:
+            if p.key in pieces:
+                flat[p.offset:p.offset + p.stop - p.start] = pieces[p.key].reshape(-1)
+                present[self.leaf_index[p.name]] = 1.0
+        if self.plan.n_shards > 1:
+            collectives.all_reduce_sum_(present, self.group)
+        views = self._leaf_views(self._gather(flat))
+        return {name: views[name].clone() for i, name in enumerate(self.plan.names)
+                if present[i] > 0}
+
+    def gathered_state_dict(self, state: ShardedTrainState) -> Dict[str, Any]:
+        """`TrainState.state_dict()` of the whole state, on every rank."""
+        opt_state: Dict[str, Any] = {}
+        for key, value in state.opt_state.items():
+            if key == "q8":
+                from hallo_tpu_torch.train import adam8bit
+
+                leaves = {k: torch.empty(s, device=self.device)
+                          for k, s in zip(self.plan.names, self.plan.shapes)}
+                opt_state[key] = self.opt.init(leaves)["q8"]
+                adam8bit.gather_q8(value, self.plan, self.pieces,
+                                   lambda x: self._gather(x), opt_state[key])
+            elif isinstance(value, dict):
+                opt_state[key] = self.gather_leaves(value)
+            else:
+                opt_state[key] = value
+        return dict(step=state.step, params=self.gather_leaves(state.params),
+                    opt_state=opt_state)
+
+    @torch.no_grad()
+    def shard_state(self, full: TrainState) -> ShardedTrainState:
+        """This rank's shard of a whole (single-card format) state, e.g. a
+        checkpoint written at another world size."""
+        flat = torch.zeros(self.plan.shard_numel, device=self.device)
+        params = self._views(flat)
+        for p in self.pieces:
+            params[p.key].copy_(full.params[p.name].reshape(-1)[p.start:p.stop])
+        opt_state = self.opt.init(params, self.sizes)
+        for key, value in full.opt_state.items():
+            if key == "q8":
+                from hallo_tpu_torch.train import adam8bit
+
+                adam8bit.shard_q8(value, self.pieces, opt_state[key])
+            elif isinstance(value, dict):
+                for p in self.pieces:
+                    if p.name in value:
+                        opt_state[key][p.key].copy_(value[p.name].reshape(-1)[p.start:p.stop])
+            else:
+                opt_state[key] = value
+        return ShardedTrainState(full.step, params, opt_state, self, flat)

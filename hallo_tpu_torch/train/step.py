@@ -28,6 +28,18 @@ port computes no other gradient). JAX's metric also counts the frozen
 denoiser weights' gradients. The update is the same: JAX's clip sees only
 the trainable leaves too.
 
+Data and clip parallelism (`mesh`, hallo_tpu/train/step.py:244-296): each
+rank takes its rows of the global batch and, with a seq axis, its frames of
+them. The timesteps, noise and noise offsets of the GLOBAL batch are drawn
+from the step's generator on every rank and sliced by (data, seq), and so
+are the per-step dropout draws (global already), so that a step at any
+world size equals the one-card step on the same global batch up to the
+order of the reductions. JAX folds the data index into its per-sample keys
+instead: a named divergence (ROADMAP, Queue 3). The gradients are
+reduced and the optimizer state sharded by `state.Zero`; the loss and the
+gradient norm that the NaN guard reads are all-reduced, so every rank skips
+the same steps.
+
 Layouts at this function's inputs are the JAX package's (channels last);
 latents are (B, F, C, h, w) inside.
 """
@@ -36,13 +48,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hallo_tpu_torch.config import SchedulerConfig
 from hallo_tpu_torch.diffusion import ddim, schedule
+from hallo_tpu_torch.parallel import collectives
+from hallo_tpu_torch.parallel.mesh import Mesh
 from hallo_tpu_torch.pipelines.face_animate import HalloModels
 from hallo_tpu_torch.train.state import AdamW, TrainState, global_norm
 
@@ -96,7 +111,7 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def make_loss_fn(
-    models: HalloModels, cfg: TrainConfig = TrainConfig()
+    models: HalloModels, cfg: TrainConfig = TrainConfig(), mesh: Optional[Mesh] = None
 ) -> Callable[[Dict[str, Any], torch.Generator], torch.Tensor]:
     """The loss of `cfg.stage`, (batch, generator) -> scalar fp32 tensor,
     with the autograd graph of whatever parameters of `models` require grad.
@@ -106,13 +121,20 @@ def make_loss_fn(
     (B, F, H, W, 3), ref_pixels (B, H, W, 3), motion_pixels (B, M, H, W, 3),
     audio_windows (B, F, W, blocks, C), face_emb (B, E), face_region
     (B, H, W, 3), masks 4 x (full, face, lip) each (B, L_d). Optional
-    deterministic overrides: "noise" (B, F, h, w, 4) and "timesteps" (B,)."""
+    deterministic overrides: "noise" (B, F, h, w, 4) and "timesteps" (B,).
+
+    With a `mesh`, the batch is this rank's: its rows of the global batch and
+    its frames of those (F = clip / seq), "noise" and "timesteps" included;
+    the loss is the mean over them."""
     dev = models.device
     dtype = models.denoising_net.conv_in.weight.dtype
     alphas = torch.tensor(schedule.alphas_cumprod(cfg.scheduler), device=dev)
     pred_type = cfg.scheduler.prediction_type
     m = models
     stage2 = cfg.stage == 2
+    n_data, n_seq = (mesh.n_data, mesh.n_seq) if mesh is not None else (1, 1)
+    d, s = (mesh.data_index, mesh.seq_index) if mesh is not None else (0, 0)
+    seq_group = mesh.seq_group if n_seq > 1 else None
     # stage 2 keeps the stage-1 networks out of the graph (JAX's stop_gradient)
     frozen = torch.no_grad if stage2 else contextlib.nullcontext
 
@@ -129,18 +151,21 @@ def make_loss_fn(
         b, f = pixels.shape[:2]
         with torch.no_grad():
             lat = encode(pixels.flatten(0, 1)).unflatten(0, (b, f))  # (B, F, 4, h, w)
+        # the global batch's draws, this rank's rows and frames of them
         if "noise" in batch:
             noise = put(batch["noise"]).permute(0, 1, 4, 2, 3)
         else:
-            noise = torch.randn(lat.shape, generator=gen, device=dev)
+            noise = torch.randn((b * n_data, f * n_seq) + lat.shape[2:], generator=gen,
+                                device=dev)
             if cfg.noise_offset > 0:
                 noise = noise + cfg.noise_offset * torch.randn(
-                    (b, 1, lat.shape[2], 1, 1), generator=gen, device=dev)
+                    (b * n_data, 1, lat.shape[2], 1, 1), generator=gen, device=dev)
+            noise = noise[d * b:(d + 1) * b, s * f:(s + 1) * f]
         if "timesteps" in batch:
             t = torch.as_tensor(np.asarray(batch["timesteps"]), device=dev).long()
         else:
-            t = torch.randint(0, cfg.scheduler.num_train_timesteps, (b,), generator=gen,
-                              device=dev)
+            t = torch.randint(0, cfg.scheduler.num_train_timesteps, (b * n_data,),
+                              generator=gen, device=dev)[d * b:(d + 1) * b]
         noisy = ddim.add_noise(alphas, lat, noise, t)
 
         u = torch.rand((), generator=gen, device=dev)
@@ -162,8 +187,16 @@ def make_loss_fn(
             tokens = m.image_proj(unless(drop_img, face_emb))
             # the identity tokens tile over the ReferenceNet batch the way the
             # reference does (JAX's legacy_context_tiling: jnp.tile, not a
-            # per-sample repeat), misaligned with the frames
-            ref_ctx = tokens.repeat(one_m, 1, 1)
+            # per-sample repeat), misaligned with the frames; over the GLOBAL
+            # batch's rows under data parallelism (as JAX's GSPMD step), so
+            # that the rows of one rank take other ranks' tokens as the
+            # one-card step does (stage 2: the tokens take no gradient)
+            if one_m > 1 and n_data > 1:
+                rows = slice(d * b * one_m, (d + 1) * b * one_m)
+                ref_ctx = collectives.all_gather(tokens, mesh.data_group, dim=0).repeat(
+                    one_m, 1, 1)[rows]
+            else:
+                ref_ctx = tokens.repeat(one_m, 1, 1)
             _, feats = m.reference_net(ref_lat, torch.zeros((), device=dev), ref_ctx)
             face_cond = None
             if "face_region" in batch:
@@ -185,7 +218,7 @@ def make_loss_fn(
 
         pred = m.denoising_net(
             noisy, t, tokens, ref_feats, motion_feats, audio_tokens, face_cond, masks,
-            torch.ones(3, device=dev), uncond_mask, train=True,
+            torch.ones(3, device=dev), uncond_mask, train=True, seq_group=seq_group,
         )
         target = ddim.get_velocity(alphas, lat, noise, t) if pred_type == "v_prediction" \
             else noise
@@ -202,6 +235,7 @@ def make_train_step(
     trainable: Mapping[str, torch.nn.Parameter],
     opt: AdamW,
     cfg: TrainConfig = TrainConfig(),
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[TrainState, Dict[str, Any], torch.Generator],
               Tuple[TrainState, Dict[str, float]]]:
     """The (state, batch, generator) -> (state, metrics) step on
@@ -216,8 +250,13 @@ def make_train_step(
     gradients, steps the masters and the optimizer state in place (unless
     the NaN guard skips), writes the masters back into the model and returns
     the same state with `step` + 1. Metrics: loss, grad_norm (trainable),
-    skipped."""
-    loss_fn = make_loss_fn(models, cfg)
+    skipped.
+
+    With a `mesh`, the state is a `state.ShardedTrainState` (its `Zero` of
+    this mesh: `Zero(mesh, trainable, opt).create(trainable)`), the batch
+    this rank's (`make_loss_fn`), and the metrics those of the global batch,
+    the same on every rank."""
+    loss_fn = make_loss_fn(models, cfg, mesh)
     names = list(trainable)
     params = [trainable[n] for n in names]
 
@@ -226,11 +265,19 @@ def make_train_step(
         # a parameter that reaches no output of the loss gets zeros (jax.grad)
         grads = {name: torch.zeros_like(p) if g is None else g for name, p, g in zip(
             names, params, torch.autograd.grad(loss, params, allow_unused=True))}
-        grad_norm = global_norm(grads.values())
-        loss_v, norm_v = loss.item(), grad_norm.item()
+        if mesh is None:
+            loss_v, norm_v = loss.item(), global_norm(grads.values()).item()
+        else:
+            grads = state.zero.reduce(grads)
+            world = dist.get_world_size()
+            loss_v = (collectives.all_reduce_sum(loss.detach(), dist.group.WORLD) / world).item()
+            norm_v = state.zero.norm(list(grads.values())).item()
         finite = bool(np.isfinite(loss_v) and np.isfinite(norm_v))
         if finite:
-            opt.update(grads, state.opt_state, state.params)
+            if mesh is None:
+                opt.update(grads, state.opt_state, state.params)
+            else:
+                state.zero.update(state, grads)
             state.write_to(trainable)
         state.step += 1
         return state, dict(loss=loss_v, grad_norm=norm_v, skipped=0.0 if finite else 1.0)

@@ -210,3 +210,66 @@ def test_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == torch.device("cuda"), fn
     assert inference.build_parser().get_default("device") == "cuda"
     assert data_preprocess.build_parser().get_default("device") == "cuda"
+
+
+PARALLEL_PROGRAM = r"""
+import os, sys, tempfile
+import numpy as np
+import torch
+import torch.distributed as dist
+from hallo_tpu_torch.parallel import collectives
+from hallo_tpu_torch.parallel.mesh import mesh_from_config, parallel_settings
+from hallo_tpu_torch.pipelines.face_animate import FaceAnimatePipeline
+from hallo_tpu_torch.train.state import AdamW, OptimizerConfig, Zero, stage2_trainable, unfreeze
+from hallo_tpu_torch.train.step import make_train_step, step_generator
+from hallo_tpu_torch.utils.factory import build_models, dummy_clip_inputs
+tmp = tempfile.mkdtemp()
+dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                        world_size=1)
+mesh = mesh_from_config("configs/parallel.yaml")
+assert mesh.shape == {"data": 1, "seq": 1} and parallel_settings("configs/parallel.yaml")
+models = build_models("tiny", device="cpu")
+pipe = FaceAnimatePipeline(models, num_inference_steps=1, clip_length=4, n_motion_frames=2,
+                           mesh=mesh)
+assert pipe.seq_group is None
+pipe.seq_group = mesh.seq_group  # the clip-parallel path at one rank
+video = pipe(**dummy_clip_inputs(models, 64, 64, 4))
+assert video.shape == (1, 4, 64, 64, 3) and collectives.LAUNCHES["all_to_all"] > 0
+trainable = unfreeze(models.modules(), stage2_trainable)
+opt = AdamW(OptimizerConfig())
+rng = np.random.default_rng(0)
+batch = dict(
+    pixel_values=rng.uniform(-1, 1, (1, 2, 64, 64, 3)), ref_pixels=rng.uniform(-1, 1, (1, 64, 64, 3)),
+    motion_pixels=rng.uniform(-1, 1, (1, 2, 64, 64, 3)), audio_windows=rng.normal(size=(1, 2, 3, 2, 4)),
+    face_emb=rng.normal(size=(1, 16)), face_region=np.ones((1, 64, 64, 3)),
+    masks=tuple(tuple(np.ones((1, (8 >> d) ** 2)) for _ in range(3)) for d in range(4)))
+state, metrics = make_train_step(models, trainable, opt, mesh=mesh)(
+    Zero(mesh, trainable, opt).create(trainable), batch, step_generator(0, 0, "cpu"))
+assert np.isfinite(metrics["loss"]) and collectives.LAUNCHES["all_reduce"] > 0
+dist.destroy_process_group()
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "triton", "flax", "hallo_tpu")))
+"""
+
+
+def test_parallel_package_never_imports_jax_or_the_jax_package():
+    """hallo_tpu_torch/parallel/ on the CPU in a fresh interpreter (a gloo
+    group of one rank: the mesh of configs/parallel.yaml, the tiny clip
+    through the clip-parallel path, one ZeRO train step) leaves no jax,
+    flax, triton or hallo_tpu module in sys.modules, and none of its source
+    lines imports jax or hallo_tpu."""
+    out = subprocess.run(
+        [sys.executable, "-c", PARALLEL_PROGRAM], cwd=REPO, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    root = os.path.join(REPO, "hallo_tpu_torch", "parallel")
+    sources = [os.path.join(root, f) for f in os.listdir(root) if f.endswith(".py")]
+    assert {"__init__.py", "mesh.py", "collectives.py"} <= {os.path.basename(f) for f in sources}
+    jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b")
+    for path in sources:
+        with open(path) as fh:
+            for i, line in enumerate(fh, 1):
+                assert not _IMPORT_JAX_PACKAGE.match(line), f"{path}:{i}"
+                assert not jax_import.match(line), f"{path}:{i}"
