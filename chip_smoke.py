@@ -148,14 +148,21 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    1.wav's windows (512^2, 16 + 2 frames, the steps of phase 4) through the
    clip-parallel path against the plain clip, and phase 6's step (B 1,
    14 + 2 frames, per-block checkpointing, AdamW) through ZeRO-2 against
-   the plain step; at one card bit for bit (the collectives at group size
-   1), with seconds, peak memory and the collectives' launches of each.
-   With 2 cards or more the clip at seq = world within PROFILE_RTOL, a
-   planted fault (the inflated GroupNorms' moments not all-reduced) that
-   must exceed it, and the step at data = world and at seq = world within
-   TRAIN_RTOL of the plain step on the same global batch (at 256^2). The
-   kernel phase holds K2 at the clip-parallel shapes too (level 0's sites
-   over 2 and 4 ranks, 16 + 2 frames, B 2 and 4).
+   the plain step, then the step with the same models sharded by tensor
+   parallelism over model = world (`parallel/tp.py`, min_dim 1280); at one
+   card bit for bit (the collectives at group size
+   1), with seconds, peak memory, the collectives' launches of each and
+   the kernels' launches a tensor-parallel step. With 2 cards or more the
+   clip at seq = world within PROFILE_RTOL, a planted fault (the inflated
+   GroupNorms' moments not all-reduced) that must exceed it, the step at
+   data = world and at seq = world, and the tensor-parallel step at model =
+   world and (4 cards) data 2 x model 2, within TRAIN_RTOL of the plain step
+   on the same global batch (at 256^2), with a planted fault (g's backward
+   summing over the group) that must exceed it. The kernel phase holds K2
+   at the clip-parallel shapes too (level 0's sites over 2 and 4 ranks, 16
+   + 2 frames, B 2 and 4), and K1, K2 and K5 at the tensor-parallel head
+   counts (the 1280-wide levels' 8 heads of d 160 split over 2 and 4
+   ranks).
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`;
@@ -168,9 +175,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import datetime
+import faulthandler
 import gc
 import json
 import logging
+import math
 import os
 import shutil
 import socket
@@ -203,7 +212,9 @@ from hallo_tpu_torch.ops import _build, flash, layout, temporal, winograd
 from hallo_tpu_torch.ops.attention import attention_reference
 from hallo_tpu_torch.ops.bench_temporal import timings
 from hallo_tpu_torch.parallel import collectives
+from hallo_tpu_torch.parallel import tp as tp_module
 from hallo_tpu_torch.parallel.mesh import make_mesh
+from hallo_tpu_torch.parallel.tp import count_sharded, shard_modules, tp_plan
 from hallo_tpu_torch.pipelines.face_animate import (
     MODULE_NAMES, FaceAnimatePipeline, HalloModels, window_audio_embeddings)
 from hallo_tpu_torch.pipelines.bench_static import STATIC_2D
@@ -352,7 +363,8 @@ STATIC_RTOL = 5e-2
 STAGE1_RTOL = TRAIN_RTOL
 
 # The parallel phase (`phase_parallel`): its ranks, one a card, write their
-# result under PARALLEL_DIR and must end within PARALLEL_TIMEOUT_S.
+# result under PARALLEL_DIR and must end within PARALLEL_TIMEOUT_S; a minute
+# before it, each rank prints its threads' Python stacks (faulthandler).
 PARALLEL_DIR = os.path.join(_build.BUILD_DIR, "parallel")
 PARALLEL_TIMEOUT_S = 600
 
@@ -771,6 +783,22 @@ def kernel_cases(dev):
         ("stage 1 identity level 3", 64, 4, 1280, False),
     ):
         cases += training_cases(randn, sdpa, dev, name, 8, lq, lk, c, 8, with_bias)
+    # Tensor parallelism (parallel/tp.py), after the main-path cases (each
+    # row of the kernels line reports its first case): the 1280-wide
+    # levels' attentions on one rank's heads of d 160, 4 at model 2 (C 640)
+    # and 2 at model 4 (C 320): K1 at level 2 (the CFG batch 2) and level 3,
+    # K2 at level 2, K1 with its LSE and K5's passes at level 2 in training
+    # (14 frames)
+    for n in (2, 4):
+        c, h = 1280 // n, 8 // n
+        cases.append(packed(f"K1 model {n}: level 2 d=160 Lq 256 Lk 512 C {c}", 2, 256, 512,
+                            c, heads=h))
+        cases.append(packed(f"K1 model {n}: level 3 d=160 Lq 64 Lk 128 C {c}", 2, 64, 128, c,
+                            heads=h))
+        cases.append(frames("temporal_attn", f"K2 model {n}: level 2 F 18 L 256 C {c} d=160",
+                            2, 18, 256, c, h))
+        cases += training_cases(randn, sdpa, dev, f"model {n} level 2", 14, 256, 512, c, h,
+                                True)
     # K8 and K9, from a generator of their own
     gen = torch.Generator(device=dev).manual_seed(11)
     return cases + winograd_cases(dev, gen) + layout_cases(dev, gen)
@@ -2803,15 +2831,20 @@ def recorded_clip(pipe: FaceAnimatePipeline, inputs: dict) -> dict:
 
 
 def captured_step(models: HalloModels, trainable: dict, mesh, batch: dict,
-                  steps: int = 2) -> dict:
+                  steps: int = 2, tp=None, profiled: bool = False) -> dict:
     """`steps` stage-2 steps (phase 6's: AdamW at lr 1e-5, a one-step
     warm-up, TrainConfig's dropouts drawn from the step generator) from the
     models' weights, through ZeRO with a mesh: the first step's loss and
     whole gradient (fp32, captured for the check), the masters after the
     last step (the warm-up's first update moves no weight), both moved to
     the host so that they hold no device memory in the next run, each
-    step's seconds and the peak memory of the steps after the first
-    (nothing captured there)."""
+    step's seconds, and the peak memory and the launches a step of each
+    kernel and collective of the steps after the first (nothing captured
+    there).
+    `tp`: the tensor-parallel plan the models
+    were sharded by (gradients and masters gathered whole). With
+    `profiled`, one more step after those under torch.profiler: its wall
+    and device busy ms, and the device ms and launches of NCCL's kernels."""
     opt = AdamW(OptimizerConfig(learning_rate=1e-5, lr_warmup_steps=1))
     captured = {}
     if mesh is None:
@@ -2819,12 +2852,13 @@ def captured_step(models: HalloModels, trainable: dict, mesh, batch: dict,
         update = opt.update
 
         def capture(grads, opt_state, params, **kw):
-            captured.setdefault("grads", {k: g.float().cpu() for k, g in grads.items()})
+            if "grads" not in captured:  # the first step's alone
+                captured["grads"] = {k: g.float().cpu() for k, g in grads.items()}
             update(grads, opt_state, params, **kw)
 
         opt.update = capture
     else:
-        zero = Zero(mesh, trainable, opt)
+        zero = Zero(mesh, trainable, opt, tp=tp)
         state = zero.create(trainable)
         update = zero.update
 
@@ -2838,6 +2872,10 @@ def captured_step(models: HalloModels, trainable: dict, mesh, batch: dict,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     seconds, first = [], None
+    def counts():
+        return dict(launch_counts(), **{f"collective {k}": v
+                                        for k, v in collectives.LAUNCHES.items()})
+
     for i in range(steps):
         t0 = time.perf_counter()
         state, m = step(state, batch, step_generator(0, i, models.device))
@@ -2848,10 +2886,32 @@ def captured_step(models: HalloModels, trainable: dict, mesh, batch: dict,
         if i == 0:
             first = dict(loss=m["loss"], grad_norm=m["grad_norm"], grads=captured["grads"])
             torch.cuda.reset_peak_memory_stats()
+            before = counts()
     peak = torch.cuda.max_memory_allocated()
+    launches = {k: (v - before[k]) / max(1, steps - 1) for k, v in counts().items()
+                if v > before[k]}
     masters = state.state_dict()["params"] if mesh is not None else state.params
-    return dict(first, masters={k: v.cpu() for k, v in masters.items()}, seconds=seconds,
-                peak=peak)
+    out = dict(first, masters={k: v.to("cpu", copy=True) for k, v in masters.items()},
+               seconds=seconds, peak=peak, launches=launches)
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        # the host's activity too: with the device's alone NCCL's kernels went
+        # unseen; the CPU's alone on a rehearsal
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if models.device.type == "cuda" else [])
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            step(state, batch, step_generator(0, steps, models.device))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total, e.count,
+                 e.key) for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        nccl = [r for r in rows if "nccl" in r[2].lower()]
+        out["profile"] = dict(wall_ms=wall * 1e3, busy_ms=sum(r[0] for r in rows) / 1e3,
+                              nccl_ms=sum(r[0] for r in nccl) / 1e3,
+                              nccl_launches=sum(r[1] for r in nccl))
+    return out
 
 
 def rows_and_frames(batch: dict, mesh) -> dict:
@@ -2871,12 +2931,20 @@ def rows_and_frames(batch: dict, mesh) -> dict:
 
 
 def step_errors(got: dict, want: dict) -> tuple:
-    """(loss, gradient, masters) relative errors of two `captured_step`s."""
+    """(loss, gradient, masters) relative errors of two `captured_step`s:
+    each the relative L2 error over every trainable leaf, its sums taken
+    leaf by leaf on the host (no whole flat copy)."""
     names = list(want["grads"])
-    flat = lambda d: torch.cat([d[k].float().flatten() for k in names])  # noqa: E731
-    return (abs(got["loss"] - want["loss"]) / abs(want["loss"]),
-            rel_err(flat(got["grads"]), flat(want["grads"])),
-            rel_err(flat(got["masters"]), flat(want["masters"])))
+
+    def rel(part: str) -> float:
+        num = den = 0.0
+        for k in names:
+            w = want[part][k].float()
+            num += (got[part][k].float() - w).square().sum().item()
+            den += w.square().sum().item()
+        return math.sqrt(num / den)
+
+    return (abs(got["loss"] - want["loss"]) / abs(want["loss"]), rel("grads"), rel("masters"))
 
 
 # The parallel phase's sizes: the full-width models, phase 4's clip and
@@ -2886,8 +2954,15 @@ PARALLEL_SHAPES = dict(scale="full", clip=16, size=512, train_frames=14, small_s
 
 def parallel_checks(rank: int, world: int, dev, inputs: dict, steps: int,
                     shapes: dict) -> dict:
-    """The parallel phase's work in one rank (see `phase_parallel`)."""
+    """The parallel phase's work in one rank (see `phase_parallel`); rank 0
+    logs the seconds at which each part ended."""
     out = dict(world=world, backend=dist.get_backend())
+    t0 = time.monotonic()
+
+    def progress(part: str) -> None:
+        if rank == 0:
+            log(f"parallel phase, rank 0: {part} at {time.monotonic() - t0:.1f} s")
+
     models = build_models(shapes["scale"], device=dev, dtype=torch.bfloat16, seed=0,
                           remat=True)
     seq_mesh = make_mesh(n_data=1, n_seq=world)
@@ -2936,6 +3011,7 @@ def parallel_checks(rank: int, world: int, dev, inputs: dict, steps: int,
     out["clip_seconds"] = seconds
     out["clip_peak"] = dict(plain=plain["peak"], seq=seq["peak"])
     del plain, seq
+    progress("the clips")
 
     # the step: phase 6's batch (B 1, 14 + 2 frames at 512^2, per-block
     # checkpointing), plain and through ZeRO from the same weights
@@ -2967,21 +3043,115 @@ def parallel_checks(rank: int, world: int, dev, inputs: dict, steps: int,
     out.update(step_errs=errs if world == 1 else None,
                step_seconds=dict(plain=plain_step["seconds"], zero=zero_step["seconds"]),
                step_peak=dict(plain=plain_step["peak"], zero=zero_step["peak"]))
-    del plain_step, zero_step
+    del zero_step
+    progress("the plain and ZeRO steps")
+    refs = {}
     if world > 1:
         # data = world and seq = world against the plain step on the same
-        # global batch, at 256^2 (the plain step at B = world fits one card)
-        for axis, mesh, b in (("data", data_mesh, world), ("seq", seq_mesh, 1)):
-            batch = synthetic_batch(models, b, shapes["small_size"], shapes["clip"], 2, seed=1,
+        # global batch, at 256^2 (the plain step at B = world fits one card);
+        # the global batches of the tensor-parallel checks' meshes too
+        for b in sorted({world, 1} | ({2} if world == 4 else set())):
+            small = synthetic_batch(models, b, shapes["small_size"], shapes["clip"], 2, seed=1,
                                     fixed=False)
-            want = captured_step(models, trainable, None, batch)
+            refs[b] = (small, captured_step(models, trainable, None, small))
             restore()
-            got = captured_step(models, trainable, mesh, rows_and_frames(batch, mesh))
+        for axis, mesh, b in (("data", data_mesh, world), ("seq", seq_mesh, 1)):
+            small, want = refs[b]
+            got = captured_step(models, trainable, mesh, rows_and_frames(small, mesh))
             restore()
             out[f"step_errs_{axis}"] = step_errors(got, want)
             if not max(out[f"step_errs_{axis}"][:2]) <= TRAIN_RTOL:
                 raise RuntimeError(f"parallel phase: the step at {axis} = {world} disagrees "
                                    f"({out[f'step_errs_{axis}']})")
+        progress("the steps at data and seq = world at 256^2")
+    # tensor parallelism on the phase's models, back at their initial
+    # weights; at one rank on the plain step's batch, with more on one B 1
+    # batch that every model rank takes whole (timed, not compared)
+    del plain_pipe, seq_pipe
+    tp_batch = batch if world == 1 else synthetic_batch(
+        models, 1, shapes["size"], shapes["train_frames"], 2, seed=0, fixed=False)
+    out.update(tp_checks(world, models, init, tp_batch, plain_step, refs, progress))
+    return out
+
+
+def resharded(models: HalloModels, init: dict, tp, mesh):
+    """`models` at their initial weights (`init`, whole), sharded over
+    `mesh`'s model group by `parallel/tp.py`'s plan; `tp`, the record of an
+    earlier sharding, is undone first (its weights gathered, then
+    overwritten)."""
+    if tp is not None:
+        tp.unshard()
+    with torch.no_grad():
+        for k, p in unfreeze(models.modules(), stage2_trainable).items():
+            p.copy_(init[k])
+    return shard_modules(models.modules(), tp_plan(models.modules(), mesh.n_model), mesh)
+
+
+def tp_step(models: HalloModels, tp, batch: dict, steps: int = 2,
+            profiled: bool = False) -> dict:
+    """`captured_step` on `models` as `tp` (`resharded`) sharded them, over
+    its mesh."""
+    trainable = unfreeze(models.modules(), stage2_trainable)
+    return dict(captured_step(models, trainable, tp.mesh, batch, steps, tp=tp.plan,
+                              profiled=profiled), sharded=count_sharded(tp.plan))
+
+
+def tp_checks(world: int, models: HalloModels, init: dict, batch: dict, plain_step: dict,
+              refs: dict, progress) -> dict:
+    """Tensor parallelism in the parallel phase, on the phase's `models`
+    (at their initial weights `init` before each run, `resharded`): the
+    step at model = world (data 1) on a 512^2 batch (B 1, 14 + 2 frames),
+    timed (seconds, peak, each kernel's launches and the collectives' a
+    step); at one rank (every sharded layer's collectives at group size 1)
+    on the plain step's batch, the plain step bit for bit: loss, gradient,
+    masters, and a fourth step under torch.profiler (NCCL's device time).
+    With 2 cards or more, at 256^2 against the plain step on the same
+    global batch (`refs`) within TRAIN_RTOL, at model = world and, on 4
+    cards, at data 2 x model 2; and the planted fault (`all_reduce_sum`,
+    whose backward sums the cotangents over the group, in place of g) must
+    miss that limit. `progress(part)` logs each part's end."""
+    out = {}
+    mesh = make_mesh(n_data=1, n_model=world)
+    tp = resharded(models, init, None, mesh)
+    got = tp_step(models, tp, batch, steps=3, profiled=world == 1)
+    progress(f"the tensor-parallel step at model {world}")
+    out.update(tp_sharded=got["sharded"], tp_seconds=got["seconds"], tp_peak=got["peak"],
+               tp_profile=got.get("profile"), tp_launches=got["launches"])
+    if world == 1:
+        errs = step_errors(got, plain_step)
+        same = got["loss"] == plain_step["loss"] and all(
+            torch.equal(got[part][k], plain_step[part][k])
+            for part in ("grads", "masters") for k in plain_step[part])
+        if not same:
+            raise RuntimeError(f"parallel phase: the tensor-parallel step at group size 1 is "
+                               f"not the plain step bit for bit (loss, gradient, masters {errs})")
+        out["tp_errs"] = errs
+        return out
+    del got
+    meshes = [("model", mesh, 1)]
+    if world == 4:
+        meshes.append(("data2_model2", make_mesh(n_data=2, n_model=2), 2))
+    for name, m, b in meshes:
+        small, want = refs[b]
+        local = rows_and_frames(small, m)
+        tp = resharded(models, init, tp, m)
+        out[f"tp_errs_{name}"] = step_errors(tp_step(models, tp, local), want)
+        progress(f"the tensor-parallel check {name} at 256^2")
+        if not max(out[f"tp_errs_{name}"][:2]) <= TRAIN_RTOL:
+            raise RuntimeError(f"parallel phase: the tensor-parallel step at {name} disagrees "
+                               f"({out[f'tp_errs_{name}']})")
+        if name == "model":
+            tp = resharded(models, init, tp, m)
+            real = tp_module.reduce_from_group
+            tp_module.reduce_from_group = collectives.all_reduce_sum  # the planted fault
+            try:
+                out["tp_fault_errs"] = step_errors(tp_step(models, tp, local, steps=1), want)
+            finally:
+                tp_module.reduce_from_group = real
+            progress("the planted fault")
+            if not out["tp_fault_errs"][1] > TRAIN_RTOL:
+                raise RuntimeError(f"parallel phase: the check misses g's backward summed "
+                                   f"over the group ({out['tp_fault_errs']})")
     return out
 
 
@@ -2996,6 +3166,9 @@ def parallel_rank(rank: int, world: int, port: int, inputs: dict, steps: int,
         torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the host's cores shared between the ranks (the comparisons run on it)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    faulthandler.dump_traceback_later(PARALLEL_TIMEOUT_S - 60)
     dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
                             init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=300))
@@ -3005,6 +3178,7 @@ def parallel_rank(rank: int, world: int, port: int, inputs: dict, steps: int,
             with open(result_path, "w") as fh:
                 json.dump(out, fh)
     finally:
+        faulthandler.cancel_dump_traceback_later()
         dist.destroy_process_group()
 
 
@@ -3021,7 +3195,8 @@ def phase_parallel(inputs: dict, steps: int, shapes: dict = PARALLEL_SHAPES,
     and a planted fault (the inflated GroupNorms' moments not all-reduced)
     that must exceed it; the step at data = world and at seq = world against
     the plain step on the same global batch at 256^2 within TRAIN_RTOL.
-    `shapes`, `world` and `device_type` serve a rehearsal on the CPU."""
+    Then tensor parallelism (`tp_checks`). `shapes`, `world` and
+    `device_type` serve a rehearsal on the CPU."""
     world = world or max(1, torch.cuda.device_count())
     log(f"parallel phase: world size {world}, backend "
         f"{'nccl' if device_type == 'cuda' else 'gloo'}, one rank a card")
@@ -3066,6 +3241,15 @@ def phase_parallel(inputs: dict, steps: int, shapes: dict = PARALLEL_SHAPES,
     for key in ("clip_fault_err", "step_errs_data", "step_errs_seq"):
         if key in out:
             log(f"parallel {key}: {out[key]}")
+    log(f"parallel tensor-parallel step at model {world} (data 1, {size}^2, B 1, {frames} + 2 "
+        f"frames, {out['tp_sharded']} parameters sharded): seconds "
+        f"{[round(x, 4) for x in out['tp_seconds']]}, peak of steps 2-3 "
+        f"{out['tp_peak'] / gib:.3f} GiB (plain {out['step_peak']['plain'] / gib:.3f} GiB); "
+        f"launches a step {out['tp_launches']}; the profiled fourth step (one card only) "
+        f"{out['tp_profile']}")
+    for key in ("tp_errs", "tp_errs_model", "tp_errs_data2_model2", "tp_fault_errs"):
+        if key in out:
+            log(f"parallel {key} (loss, gradient, masters; 0 = bit for bit): {out[key]}")
     return out
 
 

@@ -22,7 +22,7 @@ from hallo_tpu_torch.models.layers import (
     CrossAttention,
     FeedForward,
     LayerNorm,
-    conv1x1_as_linear,
+    TokenConv1x1,
 )
 
 NEG_INF = -1e9
@@ -120,7 +120,7 @@ class AudioTransformerBlock(nn.Module):
             for attn_name, zc_name in _BRANCHES:
                 setattr(self, attn_name, CrossAttention(
                     dim, heads, head_dim, context_dim=audio_dim, out_dim=dim))
-                setattr(self, zc_name, nn.Conv2d(dim, dim, 1))
+                setattr(self, zc_name, TokenConv1x1(dim, dim))
         else:
             self.attn2 = CrossAttention(dim, heads, head_dim, context_dim=audio_dim,
                                         out_dim=dim)
@@ -172,7 +172,7 @@ class AudioTransformerBlock(nn.Module):
                 m = mask[half:] if cfg_split else mask
                 h = h * m[:, :, None].to(dt)
             scale_i = motion_scale[i].to(dt)
-            h = scale_i * conv1x1_as_linear(zero_conv, h)
+            h = scale_i * zero_conv(h)
             acc_c = h if acc_c is None else acc_c + h
             if cfg_split:
                 # Uncond audio tokens are all zero, so softmax(.) @ to_v(0) = 0
@@ -183,8 +183,8 @@ class AudioTransformerBlock(nn.Module):
                     torch.zeros(1, 1, c, dtype=dt, device=x.device),
                     torch.zeros(1, 1, da, dtype=dt, device=x.device),
                 )
-                zc_bo = conv1x1_as_linear(zero_conv, bo)
-                zc_0 = conv1x1_as_linear(zero_conv, torch.zeros_like(bo))
+                zc_bo = zero_conv(bo)
+                zc_0 = zero_conv(torch.zeros_like(bo))
                 if mask is not None:
                     m_u = mask[:half][:, :, None].to(dt)
                     bias_u = m_u * (zc_bo - zc_0) + zc_0

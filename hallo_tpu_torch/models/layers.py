@@ -107,10 +107,16 @@ class LayerNorm(nn.LayerNorm):
         return out * self.weight.to(cd) + self.bias.to(cd)
 
 
-def conv1x1_as_linear(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """A 1x1 Conv2d (the reference's proj_in/proj_out/zero_conv) applied as
-    a per-token linear on (..., C) tokens."""
-    return F.linear(x, conv.weight[:, :, 0, 0], conv.bias)
+class TokenConv1x1(nn.Conv2d):
+    """A 1x1 Conv2d with the reference's parameters (proj_in, proj_out,
+    zero_conv) applied as a per-token linear on (..., C) tokens: JAX's
+    Dense, and a dense of tensor parallelism's plan (`parallel/tp.py`)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight[:, :, 0, 0], self.bias)
 
 
 class Upsample2x(nn.Module):
@@ -221,12 +227,16 @@ class CrossAttention(nn.Module):
     ) -> torch.Tensor:
         """bias: additive per-key logits bias (B, Lk) over the (concatenated)
         keys. extra_kv: pre-projected (B, L_extra, inner) key/value rows
-        appended after this call's own projections."""
+        appended after this call's own projections, as wide as they are
+        (under tensor parallelism, the heads this rank runs)."""
         context = x if context is None else context
         q = self.to_q(x)
         k = self.to_k(context)
         v = self.to_v(context)
         if extra_kv is not None:
+            if extra_kv[0].shape[-1] != k.shape[-1]:
+                raise ValueError(f"extra_kv of width {extra_kv[0].shape[-1]} for projections "
+                                 f"of width {k.shape[-1]} ({self.heads} heads)")
             k = torch.cat([k, extra_kv[0].to(k.dtype)], dim=1)
             v = torch.cat([v, extra_kv[1].to(v.dtype)], dim=1)
         out = flash_attention_packed(q, k, v, heads=self.heads, bias=bias)

@@ -2,7 +2,7 @@
 hallo_tpu/models/transformer_spatial.py): GN -> 1x1 proj_in -> transformer
 block -> 1x1 proj_out + residual, with frames folded into the batch. The
 1x1 projections keep the reference's Conv2d parameters and run as
-token-wise linears."""
+token-wise linears (`TokenConv1x1`)."""
 
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from hallo_tpu_torch.models.attention_blocks import (
     BasicTransformerBlock,
     SpatialTransformerBlock,
 )
-from hallo_tpu_torch.models.layers import GroupNorm, conv1x1_as_linear
+from hallo_tpu_torch.models.layers import GroupNorm, TokenConv1x1
 
 
 def to_tokens(x: torch.Tensor) -> torch.Tensor:
@@ -35,16 +35,16 @@ class _Stage(nn.Module):
     def __init__(self, channels: int, inner: int, groups: int, block: nn.Module):
         super().__init__()
         self.norm = GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, inner, 1)
+        self.proj_in = TokenConv1x1(channels, inner)
         self.transformer_blocks = nn.ModuleList([block])
-        self.proj_out = nn.Conv2d(inner, channels, 1)
+        self.proj_out = TokenConv1x1(inner, channels)
 
     def _in(self, x2: torch.Tensor) -> torch.Tensor:
-        return conv1x1_as_linear(self.proj_in, to_tokens(self.norm(x2)))
+        return self.proj_in(to_tokens(self.norm(x2)))
 
     def _out(self, hs: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         h, w = residual.shape[-2:]
-        return from_tokens(conv1x1_as_linear(self.proj_out, hs), h, w) + residual
+        return from_tokens(self.proj_out(hs), h, w) + residual
 
 
 class SpatialTransformer(_Stage):

@@ -1,5 +1,6 @@
-"""Data and clip parallelism over `torch.distributed` process groups
-(counterpart of hallo_tpu/parallel/): the ("data", "seq") mesh from
-configs/parallel.yaml, the ZeRO partition plan (`mesh.py`) and the
-differentiable collectives the clip-parallel denoiser runs
-(`collectives.py`)."""
+"""Data, clip and tensor parallelism over `torch.distributed` process
+groups (counterpart of hallo_tpu/parallel/): the ("data", "seq", "model")
+mesh from configs/parallel.yaml, the ZeRO partition plan (`mesh.py`), the
+differentiable collectives the clip-parallel denoiser and the sharded
+denses run (`collectives.py`) and tensor parallelism's plan and sharded
+layers (`tp.py`)."""

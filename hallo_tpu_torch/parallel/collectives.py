@@ -11,6 +11,19 @@ of `jax.lax.all_to_all` (tiled), `jax.lax.psum` and `axis_index` +
   rank's loss).
 - `local_slice(x, group, dim)`: this rank's 1/n of `dim` (autograd's
   slicing backward pads with zeros, as JAX's).
+- tensor parallelism's conjugate pairs (Megatron-LM's f and g), for a
+  value that every rank of the group computes alike (a replicated
+  activation, whose cotangent is replicated too):
+  `copy_to_group(x, group)`: the identity, its backward the sum of the
+  cotangents over the group (each rank's cotangent is its partial sum);
+  `reduce_from_group(x, group)`: the sum over the group, its backward the
+  identity (the replicated output's cotangent is already whole on every
+  rank; `all_reduce_sum`'s backward would multiply it by the group's size);
+  `gather_from_group(x, group, dim)`: every rank's x concatenated along
+  `dim` (contiguous, as a dense's output), its backward this rank's slice
+  of the cotangent;
+  `scatter_to_group(x, group, dim)`: this rank's slice, its backward the
+  concatenation of every rank's cotangent;
 - `all_gather(x, group, dim)`, `reduce_scatter_sum(flat, group)`,
   `all_reduce_sum_(x, group)` (in place): the gradient-free collectives of
   the pipeline and of ZeRO.
@@ -87,6 +100,72 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """`jax.lax.psum(x, axis)`."""
     return _AllReduceSum.apply(x, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: the identity; the backward sums the cotangents over
+    the group."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g: the sum over the group; the backward is the identity."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return all_gather(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return local_slice(g, *ctx.args).contiguous(), None, None
+
+
+class _ScatterToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return local_slice(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, *ctx.args).contiguous(), None, None
+
+
+def gather_from_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's x concatenated along `dim` in rank order; the backward
+    is this rank's slice of the cotangent."""
+    return _GatherFromGroup.apply(x, group, dim % x.ndim)
+
+
+def scatter_to_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's 1/n of `dim`; the backward concatenates every rank's
+    cotangent."""
+    return _ScatterToGroup.apply(x, group, dim % x.ndim)
 
 
 def local_slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:

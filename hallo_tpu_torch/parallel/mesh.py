@@ -1,20 +1,20 @@
-"""The ("data", "seq") mesh over `torch.distributed` process groups, the
-settings of configs/parallel.yaml and the ZeRO partition plan (counterpart
-of hallo_tpu/parallel/mesh.py).
+"""The ("data", "seq", "model") mesh over `torch.distributed` process
+groups, the settings of configs/parallel.yaml and the ZeRO partition plan
+(counterpart of hallo_tpu/parallel/mesh.py).
 
 The reference trains with data parallelism and ZeRO-2 on 8 GPUs
 (accelerate_config.yaml); the JAX package adds clip parallelism, the
-16-frame window sharded over a "seq" axis. Here each rank is one process
-with one card (NCCL) or one CPU process (gloo), started by torchrun:
+16-frame window sharded over a "seq" axis, and tensor parallelism over a
+"model" axis (`parallel/tp.py`). Here each rank is one process with one
+card (NCCL) or one CPU process (gloo), started by torchrun:
 `maybe_initialize_distributed` joins the default group from torchrun's
-environment, `make_mesh` / `mesh_from_config` split the world into
-data x seq groups (rank = data index x n_seq + seq index: seq is the inner
-axis, as in JAX), and `zero_plan` lays the trainable parameters out in
-per-rank shards of whole blocks.
+environment, `make_mesh` / `mesh_from_config` split the world into data,
+seq and model groups (rank = (data index x n_seq + seq index) x n_model +
+model index: model is the innermost axis, then seq, as in JAX), and
+`zero_plan` lays the trainable parameters out in per-rank shards of whole
+blocks.
 
 Divergences from the JAX package, each on purpose:
-- `model > 1` (tensor parallelism, hallo_tpu/parallel/tp.py) raises: it is
-  not ported (ROADMAP, Queue 1);
 - the mesh must cover the world exactly (JAX takes the first devices of a
   larger set): a world size that does not match raises;
 - there is no fallback: a backend that fails to initialise raises, and
@@ -37,9 +37,6 @@ from hallo_tpu_torch.config import load_yaml
 # a collective that waits longer than this raises (NCCL's watchdog, gloo's
 # timeout) instead of hanging the run
 PROCESS_GROUP_TIMEOUT_S = 600
-
-TP_NOT_PORTED = ("mesh.model > 1 (tensor parallelism, hallo_tpu/parallel/tp.py) is not "
-                 "ported: ROADMAP.md, Queue 1")
 
 
 def torchrun_env() -> bool:
@@ -76,62 +73,77 @@ def maybe_initialize_distributed(device="cuda") -> bool:
     return True
 
 
-def mesh_shape(n_data: Optional[int], n_model: int, n_seq: int, world: int) -> Tuple[int, int]:
-    """(n_data, n_seq) of a mesh over `world` ranks (hallo_tpu make_mesh's
-    rules: n_data None takes the ranks that remain). Raises for n_model > 1
-    and for a mesh that does not cover the world exactly."""
-    if n_model > 1:
-        raise NotImplementedError(TP_NOT_PORTED)
+def mesh_shape(n_data: Optional[int], n_model: int, n_seq: int,
+               world: int) -> Tuple[int, int, int]:
+    """(n_data, n_seq, n_model) of a mesh over `world` ranks (hallo_tpu
+    make_mesh's rules: n_data None takes the ranks that remain). Raises for
+    a mesh that does not cover the world exactly."""
     if n_data is None:
-        if world % n_seq:
-            raise ValueError(f"seq={n_seq} does not divide the world size {world}")
-        n_data = world // n_seq
-    if n_data * n_seq != world:
-        raise ValueError(f"mesh data={n_data} x seq={n_seq} does not match the world size "
-                         f"{world} (torchrun --nproc_per_node)")
-    return n_data, n_seq
+        if world % (n_seq * n_model):
+            raise ValueError(f"seq={n_seq} x model={n_model} does not divide the world size "
+                             f"{world}")
+        n_data = world // (n_seq * n_model)
+    if n_data * n_seq * n_model != world:
+        raise ValueError(f"mesh data={n_data} x seq={n_seq} x model={n_model} does not match "
+                         f"the world size {world} (torchrun --nproc_per_node)")
+    return n_data, n_seq, n_model
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in the (data, seq) grid and its two groups: the
-    ranks with its seq index (`data_group`, over which gradients are
-    reduce-scattered and the batch is split) and the ranks with its data
-    index (`seq_group`, over which a clip's frames are split)."""
+    """This rank's place in the (data, seq, model) grid and its three
+    groups: the ranks with its seq and model indices (`data_group`, over
+    which gradients are reduce-scattered and the batch is split), those with
+    its data and model indices (`seq_group`, over which a clip's frames are
+    split) and those with its data and seq indices (`model_group`, over
+    which the wide denses are sharded: `parallel/tp.py`)."""
 
     n_data: int
     n_seq: int
+    n_model: int
     rank: int
     data_group: dist.ProcessGroup
     seq_group: dist.ProcessGroup
+    model_group: dist.ProcessGroup
 
     @property
     def shape(self) -> dict:
-        return {"data": self.n_data, "seq": self.n_seq}
+        return {"data": self.n_data, "seq": self.n_seq, "model": self.n_model}
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.n_seq
+        return self.rank // (self.n_seq * self.n_model)
 
     @property
     def seq_index(self) -> int:
-        return self.rank % self.n_seq
+        return self.rank // self.n_model % self.n_seq
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.n_model
 
     def group(self, axis: str) -> dist.ProcessGroup:
-        return {"data": self.data_group, "seq": self.seq_group}[axis]
+        return {"data": self.data_group, "seq": self.seq_group,
+                "model": self.model_group}[axis]
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1, n_seq: int = 1) -> Mesh:
-    """The (data, seq) mesh over the initialised world (see `mesh_shape`).
-    Every rank creates every group, in the same order."""
+    """The (data, seq, model) mesh over the initialised world (see
+    `mesh_shape`). Every rank creates every group, in the same order."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group "
                            "(maybe_initialize_distributed under torchrun)")
     world, rank = dist.get_world_size(), dist.get_rank()
-    n_data, n_seq = mesh_shape(n_data, n_model, n_seq, world)
-    seq_groups = [dist.new_group([d * n_seq + s for s in range(n_seq)]) for d in range(n_data)]
-    data_groups = [dist.new_group([d * n_seq + s for d in range(n_data)]) for s in range(n_seq)]
-    return Mesh(n_data, n_seq, rank, data_groups[rank % n_seq], seq_groups[rank // n_seq])
+    shape = n_data, n_seq, n_model = mesh_shape(n_data, n_model, n_seq, world)
+    grid = torch.arange(world).reshape(shape)  # rank = (d x n_seq + s) x n_model + m
+    groups = {}
+    for axis, name in enumerate(("data", "seq", "model")):
+        # the ranks that differ in this axis alone, each set in turn
+        for ranks in grid.movedim(axis, -1).reshape(-1, shape[axis]).tolist():
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups[name] = group
+    return Mesh(n_data, n_seq, n_model, rank, groups["data"], groups["seq"], groups["model"])
 
 
 def mesh_spec(path: Optional[str] = None) -> Tuple[Optional[int], int, int]:

@@ -159,6 +159,8 @@ class AdamW8bit(AdamW):
     `mu_q`, `nu_q` int8 (rows, BLOCK), `mu_scale`, `nu_hi` fp32 (rows,), and
     `rows`, each quantised leaf's first row."""
 
+    needs_whole_leaves = True  # blocks of the whole leaf
+
     def init(self, params: Mapping[str, torch.Tensor],
              sizes: Optional[Mapping[str, int]] = None) -> Dict[str, Any]:
         """The state of `params`; `sizes`: the element count of the leaf each

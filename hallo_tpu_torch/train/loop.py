@@ -6,14 +6,18 @@ metrics.jsonl, checkpoint-N with rotation and the validation renders.
 Under torchrun (`torchrun --standalone --nproc_per_node N -m
 hallo_tpu_torch.train.stage2 --config ...`), `parallel_setup` joins the
 process group and builds the mesh of `parallel_config` (configs/parallel.yaml
-by default, as scripts/train_stage{1,2}.py read it); the loop then steps a
-ZeRO-2 state (`state.Zero`), and rank 0 alone writes metrics.jsonl,
-checkpoints (gathered: the single-card format), exports and validation
-renders while the others wait at a barrier. Without torchrun nothing of
-this runs."""
+by default, as scripts/train_stage{1,2}.py read it); with `model > 1`,
+`tensor_parallel` shards the wide denses over the model group
+(`parallel/tp.py`, at any seq size: JAX's trainers drop it at seq > 1). The
+loop then steps a ZeRO-2 state (`state.Zero`), and rank 0 alone writes
+metrics.jsonl, checkpoints (gathered: the single-card format), exports and
+validation renders (from the gathered weights under tensor parallelism)
+while the others wait at a barrier. Without torchrun nothing of this
+runs."""
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -25,6 +29,8 @@ import torch.distributed as dist
 from hallo_tpu_torch.convert.load_pretrained import load_pretrained
 from hallo_tpu_torch.parallel.mesh import (
     Mesh, maybe_initialize_distributed, mesh_from_config, parallel_settings, rank_device)
+from hallo_tpu_torch.parallel.tp import (
+    TensorParallel, count_sharded, shard_modules, tp_plan)
 from hallo_tpu_torch.train.state import AdamW, OptimizerConfig, TrainState, Zero
 from hallo_tpu_torch.train.step import step_generator
 from hallo_tpu_torch.utils import checkpoint as ckpt
@@ -58,6 +64,22 @@ def parallel_setup(cfg, device) -> Tuple[torch.device, Optional[Mesh], dict]:
     logger.info("rank %d of %d: mesh %s, ZeRO %s", mesh.rank, dist.get_world_size(),
                 mesh.shape, settings["zero_optimizer_sharding"])
     return rank_device(device), mesh, settings
+
+
+def tensor_parallel(models, mesh: Optional[Mesh]) -> Optional[TensorParallel]:
+    """With a mesh of `model > 1`, shard `models` in place over its model
+    group (`parallel/tp.py`'s plan at JAX's default min_dim); else None."""
+    if mesh is None or mesh.n_model == 1:
+        return None
+    plan = tp_plan(models.modules(), mesh.n_model)
+    logger.info("tensor parallelism over %d ranks: %d parameters sharded", mesh.n_model,
+                count_sharded(plan))
+    return shard_modules(models.modules(), plan, mesh)
+
+
+def unsharded(tp: Optional[TensorParallel]):
+    """`tp.unsharded()`, or nothing to do without tensor parallelism."""
+    return tp.unsharded() if tp is not None else contextlib.nullcontext()
 
 
 def is_main(mesh: Optional[Mesh]) -> bool:
@@ -119,13 +141,15 @@ def train_loop(
     exp_dir: str,
     validate: Optional[Callable[[int], Any]] = None,
     zero: Optional[Zero] = None,
+    tp: Optional[TensorParallel] = None,
 ) -> TrainState:
     """Train from step 0, or from the latest checkpoint-N when
     `resume_from_checkpoint: latest`, to `solver.max_train_steps`; write
     checkpoint-N every `checkpointing_steps` (keeping `total_limit`, 3 by
     default) and call `validate(step)` every `val.validation_steps`. With
     `zero` (a mesh), the state is this rank's shard, a checkpoint of any
-    world size resumes it, and rank 0 alone writes files and validates."""
+    world size resumes it, and rank 0 alone writes files and validates
+    (with `tp`, on the weights gathered over the model group)."""
     seed = int(cfg.seed)
     mesh = zero.mesh if zero is not None else None
     main = is_main(mesh)
@@ -189,7 +213,8 @@ def train_loop(
             del whole
             barrier(mesh)
         if val_steps and (step + 1) % val_steps == 0:
-            if main:
-                validate(step + 1)
+            with unsharded(tp):
+                if main:
+                    validate(step + 1)
             barrier(mesh)
     return state

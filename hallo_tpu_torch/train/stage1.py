@@ -19,11 +19,11 @@ true by default, its per-layer one inside each block); `uncond_ratio`,
 the static pipeline every `val.validation_steps`; and the `final_{module}`
 exports that `train.stage2` reads through
 `stage1_ckpt_dir`. The exports hold the fp32 masters of the trained
-tensors. Under torchrun, data parallelism with ZeRO-2 over the mesh of
-`parallel_config` (configs/parallel.yaml by default; `data.train_bs` a data
-rank's batch, rank 0 writes the files: train/loop.py); a stage-1 item is
-one frame, so the mesh's seq axis must be 1. Not ported: tensor
-parallelism (`mesh.model > 1` raises).
+tensors. Under torchrun, data parallelism with ZeRO-2 and tensor
+parallelism over the mesh of `parallel_config` (configs/parallel.yaml by
+default; `data.train_bs` a data rank's batch, rank 0 writes the files:
+train/loop.py); a stage-1 item is one frame, so the mesh's seq axis must be
+1.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ from hallo_tpu_torch.data.datasets import FaceMaskDataset, batch_iterator
 from hallo_tpu_torch.pipelines.face_animate import HalloModels
 from hallo_tpu_torch.train.loop import (
     barrier, checkpointing, compute_dtype, is_main, optimizer_config, overlay_pretrained,
-    parallel_setup, train_loop)
+    parallel_setup, tensor_parallel, train_loop, unsharded)
 from hallo_tpu_torch.train.state import (
     TrainState, Zero, make_optimizer, stage1_trainable, unfreeze)
 from hallo_tpu_torch.train.step import TrainConfig, make_train_step
@@ -94,6 +94,7 @@ def train_stage1_process(cfg, device: torch.device = torch.device("cuda")) -> Tr
     overlay_pretrained(models, cfg, {"base_model_path": "base_model_path",
                                      "vae_model_path": "vae_model_path"})
 
+    tp = tensor_parallel(models, mesh)
     trainable = unfreeze(models.modules(), stage1_trainable)
     opt = make_optimizer(optimizer_config(cfg.solver))
     step_fn = make_train_step(models, trainable, opt, TrainConfig(
@@ -106,7 +107,8 @@ def train_stage1_process(cfg, device: torch.device = torch.device("cuda")) -> Tr
         snr_gamma=float(cfg.snr_gamma),
         scheduler=SchedulerConfig(beta_schedule="scaled_linear"),
     ), mesh=mesh)
-    zero = (Zero(mesh, trainable, opt, shard=settings["zero_optimizer_sharding"])
+    zero = (Zero(mesh, trainable, opt, shard=settings["zero_optimizer_sharding"],
+                 tp=tp.plan if tp is not None else None)
             if mesh is not None else None)
 
     def dataset() -> FaceMaskDataset:
@@ -133,14 +135,16 @@ def train_stage1_process(cfg, device: torch.device = torch.device("cuda")) -> Tr
             num_inference_steps=int((cfg.get("val") or {}).get("num_inference_steps", 20)),
             seed=seed)
 
-    state = train_loop(cfg, device, trainable, opt, step_fn, batches, exp_dir, validate, zero)
+    state = train_loop(cfg, device, trainable, opt, step_fn, batches, exp_dir, validate, zero,
+                       tp)
     # per-module exports for the stage hand-off (reference
     # move_final_checkpoint, train_stage1.py:752-758), of the whole masters
     masters = zero.gather_leaves(state.params) if zero is not None else state.params
-    if is_main(mesh):
-        for name in EXPORTED:
-            ckpt.save_params(os.path.join(exp_dir, f"final_{name}"),
-                             {name: getattr(models, name)}, masters=masters)
+    with unsharded(tp):
+        if is_main(mesh):
+            for name in EXPORTED:
+                ckpt.save_params(os.path.join(exp_dir, f"final_{name}"),
+                                 {name: getattr(models, name)}, masters=masters)
     barrier(mesh)
     logger.info("stage 1 done")
     return state

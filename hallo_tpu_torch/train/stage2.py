@@ -20,12 +20,12 @@ fits the YAML's `data.train_bs: 4` at 512^2 on one 80 GB H100. Clips are
 read ahead by the C++ prefetcher (`data/native_prefetch.py`).
 
 Under torchrun, one rank a card: the mesh of `parallel_config`
-(configs/parallel.yaml by default) splits the ranks into data x seq;
-`data.train_bs` is each data rank's batch (the global batch is train_bs x
-data, as in JAX), the seq ranks split each clip's frames (clip
-parallelism), the optimizer state is ZeRO-2 sharded over the data ranks
+(configs/parallel.yaml by default) splits the ranks into data x seq x
+model; `data.train_bs` is each data rank's batch (the global batch is
+train_bs x data, as in JAX), the seq ranks split each clip's frames (clip
+parallelism), the model ranks split the wide denses (tensor parallelism,
+`parallel/tp.py`), the optimizer state is ZeRO-2 sharded over the data ranks
 (`zero_optimizer_sharding`), and rank 0 writes the files (train/loop.py).
-Not ported: tensor parallelism (`mesh.model > 1` raises).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from hallo_tpu_torch.data.datasets import TalkingVideoDataset, batch_iterator
 from hallo_tpu_torch.pipelines.face_animate import HalloModels
 from hallo_tpu_torch.train.loop import (
     barrier, checkpointing, compute_dtype, is_main, optimizer_config, overlay_pretrained,
-    parallel_setup, train_loop)
+    parallel_setup, tensor_parallel, train_loop, unsharded)
 from hallo_tpu_torch.train.state import (
     TrainState, Zero, make_optimizer, stage2_trainable, unfreeze)
 from hallo_tpu_torch.train.step import TrainConfig, make_train_step
@@ -108,6 +108,7 @@ def train_stage2_process(cfg, device: torch.device = torch.device("cuda")) -> Tr
     elif stage1_dir:
         logger.info("stage1_ckpt_dir=%s not found: skipped", stage1_dir)
 
+    tp = tensor_parallel(models, mesh)
     trainable = unfreeze(models.modules(), stage2_trainable)
     opt = make_optimizer(optimizer_config(solver))
     step_fn = make_train_step(models, trainable, opt, TrainConfig(
@@ -120,7 +121,8 @@ def train_stage2_process(cfg, device: torch.device = torch.device("cuda")) -> Tr
         snr_gamma=float(cfg.snr_gamma),
         scheduler=SchedulerConfig(beta_schedule="scaled_linear"),
     ), mesh=mesh)
-    zero = (Zero(mesh, trainable, opt, shard=settings["zero_optimizer_sharding"])
+    zero = (Zero(mesh, trainable, opt, shard=settings["zero_optimizer_sharding"],
+                 tp=tp.plan if tp is not None else None)
             if mesh is not None else None)
 
     dataset = TalkingVideoDataset(
@@ -147,11 +149,13 @@ def train_stage2_process(cfg, device: torch.device = torch.device("cuda")) -> Tr
                 "num_inference_steps", 40)),
             seed=seed, n_motion_frames=m)
 
-    state = train_loop(cfg, device, trainable, opt, step_fn, batches, exp_dir, validate, zero)
+    state = train_loop(cfg, device, trainable, opt, step_fn, batches, exp_dir, validate, zero,
+                       tp)
     # the fused final export (the reference's net-N.pth, train_stage2.py:944-953)
-    if is_main(mesh):
-        ckpt.save_params(os.path.join(exp_dir, "final_net"),
-                         {k: getattr(models, k) for k in EXPORTED})
+    with unsharded(tp):
+        if is_main(mesh):
+            ckpt.save_params(os.path.join(exp_dir, "final_net"),
+                             {k: getattr(models, k) for k in EXPORTED})
     barrier(mesh)
     logger.info("stage 2 done")
     return state

@@ -32,6 +32,7 @@ import torch
 
 from hallo_tpu_torch.parallel import collectives
 from hallo_tpu_torch.parallel.mesh import Mesh, ZeroPlan, zero_plan
+from hallo_tpu_torch.parallel.tp import Plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +94,11 @@ def global_norm(tensors) -> torch.Tensor:
 class AdamW:
     """`optax.MultiSteps(chain(clip_by_global_norm, adamw))` over the
     trainable leaves; see the module docstring."""
+
+    # whether a leaf's update depends on the whole leaf beyond each element
+    # (the 8-bit AdamW's blocks): `Zero` then steps a tensor-parallel leaf
+    # whole, where AdamW steps each rank's piece
+    needs_whole_leaves = False
 
     def __init__(self, cfg: OptimizerConfig):
         self.cfg = cfg
@@ -263,20 +269,44 @@ class Zero:
     sum over the seq ranks of a clip's frames, averaged over the data ranks
     and the seq ranks, is the gradient of JAX's pmean'd global loss
     (hallo_tpu/train/step.py:258-296). Gradient accumulation accumulates
-    shards."""
+    shards.
+
+    Tensor parallelism (`tp`: the plan of `parallel/tp.py`, whose sharded
+    leaves `trainable` holds as this rank's pieces): the data group is the
+    ranks with this rank's seq and model indices, so each rank partitions
+    its own pieces. A piece's gradient is never reduced over the model
+    group (replicated leaves' gradients agree there already); the gradient
+    norm sums a piece's squares over the model group and counts a
+    replicated leaf once. The 8-bit AdamW (`needs_whole_leaves`) steps
+    blocks of the whole leaf, so there a sharded leaf is all-gathered over
+    the model group (its parameters at `create`, its gradient at each
+    `reduce`) and stepped whole on every model rank, each writing its piece
+    back: its masters, moments and flat gradient are not divided by
+    n_model, only by n_data (with AdamW they are divided by both). The
+    checkpoints hold whole leaves, gathered over the data and then the model
+    group."""
 
     def __init__(self, mesh: Mesh, trainable: Mapping[str, torch.nn.Parameter], opt: AdamW,
-                 shard: bool = True):
+                 shard: bool = True, tp: Optional[Plan] = None):
         self.mesh, self.opt = mesh, opt
         self.group = mesh.data_group
+        # the trainable leaves sharded over the model group: stepped whole
+        # (gathered) or as pieces (split)
+        sharded = {k: tp[k] for k in trainable if tp and tp.get(k) is not None}
+        self.whole = sharded if opt.needs_whole_leaves else {}
+        self.split = {} if opt.needs_whole_leaves else sharded
         n = mesh.n_data if shard else 1
-        self.plan: ZeroPlan = zero_plan({k: p.shape for k, p in trainable.items()}, n,
-                                        ZERO_BLOCK)
+        self.plan: ZeroPlan = zero_plan(
+            {k: self._whole_shape(k, p.shape) for k, p in trainable.items()}, n, ZERO_BLOCK)
         self.pieces = self.plan.pieces(mesh.data_index if shard else 0)
         if not self.pieces:
             raise ValueError(f"ZeRO over {n} ranks: shards of {self.plan.shard_rows} blocks "
                              f"leave rank {mesh.data_index}'s empty (too few parameters)")
         self.leaf_index = {name: i for i, name in enumerate(self.plan.names)}
+        self.split_mask = None
+        if self.split:
+            self.split_mask = torch.tensor([float(k in self.split) for k in self.plan.names],
+                                           device=next(iter(trainable.values())).device)
         dtypes = {p.dtype for p in trainable.values()}
         if len(dtypes) != 1:
             raise ValueError(f"ZeRO needs one parameter dtype, got {dtypes}")
@@ -284,6 +314,31 @@ class Zero:
         self.device = next(iter(trainable.values())).device
         self.sizes = {p.key: math.prod(self.plan.shapes[self.leaf_index[p.name]])
                       for p in self.pieces}
+
+    def _whole_shape(self, name: str, shape) -> tuple:
+        shape = list(shape)
+        if name in self.whole:
+            shape[self.whole[name].dim] *= self.mesh.n_model
+        return tuple(shape)
+
+    def _model_gather(self, shards: Mapping[str, Any],
+                      tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """`tensors` with each one that `shards` names gathered whole over the
+        model group (a collective, in the order of `tensors`)."""
+        out = dict(tensors)
+        for name, t in tensors.items():
+            if name in shards:
+                shard = shards[name]
+                out[name] = shard.whole(collectives.all_gather(
+                    t, self.mesh.model_group, shard.dim), self.mesh.n_model)
+        return out
+
+    def _model_piece(self, shards: Mapping[str, Any], name: str,
+                     whole: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of a whole leaf that `shards` names, else the leaf."""
+        if name not in shards:
+            return whole
+        return shards[name].piece(whole, self.mesh.n_model, self.mesh.model_index)
 
     def _views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {p.key: flat[p.offset:p.offset + p.stop - p.start] for p in self.pieces}
@@ -305,8 +360,9 @@ class Zero:
         flat = torch.zeros(self.plan.shard_numel, device=self.device)
         params = self._views(flat)
         with torch.no_grad():
+            leaves = self._model_gather(self.whole, {k: p.detach() for k, p in trainable.items()})
             for p in self.pieces:
-                params[p.key].copy_(trainable[p.name].detach().reshape(-1)[p.start:p.stop])
+                params[p.key].copy_(leaves[p.name].reshape(-1)[p.start:p.stop])
         return ShardedTrainState(0, params, self.opt.init(params, self.sizes), self, flat)
 
     def reduce(self, grads: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -315,6 +371,7 @@ class Zero:
         fp32, keyed by piece."""
         full = torch.zeros(self.plan.numel, device=self.device)
         views = self._leaf_views(full)
+        grads = self._model_gather(self.whole, grads)
         torch._foreach_copy_([views[k] for k in self.plan.names],
                              [grads[k] for k in self.plan.names])
         n_data, n_seq = self.mesh.n_data, self.mesh.n_seq
@@ -333,14 +390,20 @@ class Zero:
         piece order): each leaf's norm from its pieces' squared norms summed
         over the shards, then the norm of those. A leaf held whole gives its
         own norm bit for bit (sqrt(x * x) = x in binary floating point); with
-        one shard this is `global_norm`."""
-        if self.plan.n_shards == 1:
+        one shard and no tensor-parallel piece this is `global_norm`. A
+        piece's squares are summed over the model group too; a replicated
+        or whole leaf, the same on every model rank, is counted once."""
+        if self.plan.n_shards == 1 and not self.split:
             return global_norm(tensors)
         norms = torch._foreach_norm(list(tensors), 2, dtype=torch.float32)
         sq = torch.zeros(len(self.plan.names), device=self.device)
         idx = torch.tensor([self.leaf_index[p.name] for p in self.pieces], device=self.device)
         sq.index_put_((idx,), torch.stack(norms).square())
-        collectives.all_reduce_sum_(sq, self.group)
+        if self.plan.n_shards > 1:
+            collectives.all_reduce_sum_(sq, self.group)
+        if self.split:
+            pieces = collectives.all_reduce_sum_(sq * self.split_mask, self.mesh.model_group)
+            sq = torch.where(self.split_mask > 0, pieces, sq)
         return torch.linalg.vector_norm(sq.sqrt())
 
     def update(self, state: ShardedTrainState, shard_grads: Mapping[str, torch.Tensor]) -> None:
@@ -354,12 +417,13 @@ class Zero:
         full = self._gather(flat.to(self.dtype))
         views = self._leaf_views(full)
         torch._foreach_copy_([trainable[k] for k in self.plan.names],
-                             [views[k] for k in self.plan.names])
+                             [self._model_piece(self.whole, k, views[k]) for k in self.plan.names])
 
     def gather_leaves(self, pieces: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Whole leaves from every rank's pieces of them (a dict that holds a
-        subset of the leaves, as the 8-bit AdamW's fp32 moments, gives that
-        subset)."""
+        """Whole leaves from every rank's pieces of them, gathered over the
+        data group and, for a tensor-parallel piece, the model group (a dict
+        that holds a subset of the leaves, as the 8-bit AdamW's fp32
+        moments, gives that subset)."""
         dtype = next(iter(pieces.values())).dtype if pieces else torch.float32
         flat = torch.zeros(self.plan.shard_numel, dtype=dtype, device=self.device)
         present = torch.zeros(len(self.plan.names), device=self.device)
@@ -370,8 +434,9 @@ class Zero:
         if self.plan.n_shards > 1:
             collectives.all_reduce_sum_(present, self.group)
         views = self._leaf_views(self._gather(flat))
-        return {name: views[name].clone() for i, name in enumerate(self.plan.names)
-                if present[i] > 0}
+        return self._model_gather(self.split, {
+            name: views[name].clone() for i, name in enumerate(self.plan.names)
+            if present[i] > 0})
 
     def gathered_state_dict(self, state: ShardedTrainState) -> Dict[str, Any]:
         """`TrainState.state_dict()` of the whole state, on every rank."""
@@ -398,8 +463,14 @@ class Zero:
         checkpoint written at another world size."""
         flat = torch.zeros(self.plan.shard_numel, device=self.device)
         params = self._views(flat)
+
+        def mine(p, leaves):
+            """Piece p of this rank's part of a whole leaf."""
+            return self._model_piece(self.split, p.name, leaves[p.name]).reshape(-1)[
+                p.start:p.stop]
+
         for p in self.pieces:
-            params[p.key].copy_(full.params[p.name].reshape(-1)[p.start:p.stop])
+            params[p.key].copy_(mine(p, full.params))
         opt_state = self.opt.init(params, self.sizes)
         for key, value in full.opt_state.items():
             if key == "q8":
@@ -409,7 +480,7 @@ class Zero:
             elif isinstance(value, dict):
                 for p in self.pieces:
                     if p.name in value:
-                        opt_state[key][p.key].copy_(value[p.name].reshape(-1)[p.start:p.stop])
+                        opt_state[key][p.key].copy_(mine(p, value))
             else:
                 opt_state[key] = value
         return ShardedTrainState(full.step, params, opt_state, self, flat)

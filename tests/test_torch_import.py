@@ -219,6 +219,7 @@ import torch
 import torch.distributed as dist
 from hallo_tpu_torch.parallel import collectives
 from hallo_tpu_torch.parallel.mesh import mesh_from_config, parallel_settings
+from hallo_tpu_torch.parallel.tp import shard_modules, tp_plan
 from hallo_tpu_torch.pipelines.face_animate import FaceAnimatePipeline
 from hallo_tpu_torch.train.state import AdamW, OptimizerConfig, Zero, stage2_trainable, unfreeze
 from hallo_tpu_torch.train.step import make_train_step, step_generator
@@ -227,7 +228,7 @@ tmp = tempfile.mkdtemp()
 dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
                         world_size=1)
 mesh = mesh_from_config("configs/parallel.yaml")
-assert mesh.shape == {"data": 1, "seq": 1} and parallel_settings("configs/parallel.yaml")
+assert mesh.shape == {"data": 1, "seq": 1, "model": 1} and parallel_settings("configs/parallel.yaml")
 models = build_models("tiny", device="cpu")
 pipe = FaceAnimatePipeline(models, num_inference_steps=1, clip_length=4, n_motion_frames=2,
                            mesh=mesh)
@@ -246,6 +247,12 @@ batch = dict(
 state, metrics = make_train_step(models, trainable, opt, mesh=mesh)(
     Zero(mesh, trainable, opt).create(trainable), batch, step_generator(0, 0, "cpu"))
 assert np.isfinite(metrics["loss"]) and collectives.LAUNCHES["all_reduce"] > 0
+plan = tp_plan(models.modules(), 1, 16)  # tensor parallelism at group size 1
+shard_modules(models.modules(), plan, mesh)
+trainable = unfreeze(models.modules(), stage2_trainable)
+state, metrics = make_train_step(models, trainable, opt, mesh=mesh)(
+    Zero(mesh, trainable, opt, tp=plan).create(trainable), batch, step_generator(0, 0, "cpu"))
+assert np.isfinite(metrics["loss"]) and collectives.LAUNCHES["all_gather"] > 0
 dist.destroy_process_group()
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "flax", "hallo_tpu")))
@@ -255,7 +262,8 @@ print(sorted(m for m in sys.modules
 def test_parallel_package_never_imports_jax_or_the_jax_package():
     """hallo_tpu_torch/parallel/ on the CPU in a fresh interpreter (a gloo
     group of one rank: the mesh of configs/parallel.yaml, the tiny clip
-    through the clip-parallel path, one ZeRO train step) leaves no jax,
+    through the clip-parallel path, one ZeRO train step, one with the tiny
+    models sharded by tensor parallelism at group size 1) leaves no jax,
     flax, triton or hallo_tpu module in sys.modules, and none of its source
     lines imports jax or hallo_tpu."""
     out = subprocess.run(
@@ -266,7 +274,8 @@ def test_parallel_package_never_imports_jax_or_the_jax_package():
     assert out.stdout.strip().splitlines()[-1] == "[]"
     root = os.path.join(REPO, "hallo_tpu_torch", "parallel")
     sources = [os.path.join(root, f) for f in os.listdir(root) if f.endswith(".py")]
-    assert {"__init__.py", "mesh.py", "collectives.py"} <= {os.path.basename(f) for f in sources}
+    assert {"__init__.py", "mesh.py", "collectives.py", "tp.py"} <= {
+        os.path.basename(f) for f in sources}
     jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b")
     for path in sources:
         with open(path) as fh:

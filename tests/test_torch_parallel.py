@@ -349,6 +349,7 @@ PARALLEL_YAMLS = {
     "data0": "mesh:\n  data: 0\n  seq: 8\nzero_optimizer_sharding: false\n",
     "seq_neg": "mesh:\n  seq: -1\n",
     "settings_only": "mixed_precision: NO\n",
+    "data2_model4": "mesh:\n  data: 2\n  model: 4\n",
 }
 
 
@@ -356,8 +357,9 @@ PARALLEL_YAMLS = {
 def test_mesh_and_settings_match_jax(tmp_path, name):
     """`mesh_spec` + `mesh_shape` over 8 ranks give JAX's `mesh_from_config`
     axis sizes over its 8 virtual devices (-1 and 0 take the remaining
-    ranks, seq and model at least 1), and `parallel_settings` JAX's dict;
-    the repo's configs/parallel.yaml is the "default" case."""
+    ranks, seq and model at least 1; a model axis of 4), and
+    `parallel_settings` JAX's dict; the repo's configs/parallel.yaml is the
+    "default" case."""
     text = PARALLEL_YAMLS[name]
     path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs",
                         "parallel.yaml")
@@ -367,15 +369,17 @@ def test_mesh_and_settings_match_jax(tmp_path, name):
             fh.write(text)
     want = jax_mesh.mesh_from_config(path).shape
     n_data, n_model, n_seq = tmesh.mesh_spec(path)
-    assert tmesh.mesh_shape(n_data, n_model, n_seq, 8) == (want["data"], want["seq"])
-    assert want["model"] == n_model == 1
+    assert tmesh.mesh_shape(n_data, n_model, n_seq, 8) == (want["data"], want["seq"],
+                                                           want["model"])
+    assert want["model"] == n_model == (4 if name == "data2_model4" else 1)
     assert tmesh.parallel_settings(path) == jax_mesh.parallel_settings(path)
 
 
 def test_mesh_config_divergences_and_missing_path(tmp_path):
-    """A missing path raises in both packages; `model > 1` and a mesh that
-    does not cover the world raise in the port only (JAX builds a TP mesh,
-    and one on the first devices of a larger set)."""
+    """A missing path raises in both packages; a `model: 2` config gives
+    JAX's axis sizes (data 4 x model 2 over 8); a mesh that does not cover
+    the world raises in the port only (JAX builds one on the first devices
+    of a larger set)."""
     missing = str(tmp_path / "nope.yaml")
     for fn in (jax_mesh.mesh_from_config, jax_mesh.parallel_settings, tmesh.mesh_spec,
                tmesh.parallel_settings):
@@ -384,9 +388,10 @@ def test_mesh_config_divergences_and_missing_path(tmp_path):
     path = str(tmp_path / "tp.yaml")
     with open(path, "w") as fh:
         fh.write("mesh:\n  data: 4\n  model: 2\n")
-    assert jax_mesh.mesh_from_config(path).shape["model"] == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmesh.mesh_shape(*tmesh.mesh_spec(path), 8)
+    want = jax_mesh.mesh_from_config(path).shape
+    assert want["model"] == 2
+    assert tmesh.mesh_shape(*tmesh.mesh_spec(path), 8) == (want["data"], want["seq"],
+                                                           want["model"]) == (4, 1, 2)
     assert jax_mesh.make_mesh(n_data=2, n_seq=2).shape["data"] == 2  # 4 of 8 devices
     with pytest.raises(ValueError):
         tmesh.mesh_shape(2, 1, 2, 8)
@@ -394,15 +399,21 @@ def test_mesh_config_divergences_and_missing_path(tmp_path):
 
 def test_mesh_groups_at_world_4(tmp_path):
     """configs of data 2 x seq 2 in 4 gloo ranks: rank = data x 2 + seq (seq
-    the inner axis), each rank's data and seq groups, and the meshes that
-    must raise (a data size that does not divide the world, model 2)."""
+    the inner axis), each rank's data and seq groups (its model group: itself
+    alone); the mesh of data 2 x model 2: rank = data x 2 + model (model the
+    innermost axis, as JAX's), its data and model groups (its seq group:
+    itself); and the meshes that must raise (a data or seq size that does not
+    divide the world, seq 2 x model 4 over 4 ranks)."""
     path = str(tmp_path / "parallel.yaml")
     with open(path, "w") as fh:
         fh.write("mesh:\n  data: 2\n  seq: 2\n")
     ranks = spawn("mesh_groups", 4, str(tmp_path / "run"), path=path)
     for r, got in enumerate(ranks):
-        d, s = divmod(r, 2)
-        assert got["shape"] == {"data": 2, "seq": 2}
-        assert (got["data_index"], got["seq_index"]) == (d, s)
-        assert got["data_ranks"] == [s, 2 + s] and got["seq_ranks"] == [2 * d, 2 * d + 1]
-        assert got["errors"] == ["ValueError", "NotImplementedError", "ValueError"]
+        d, i = divmod(r, 2)
+        assert got["config"] == dict(shape={"data": 2, "seq": 2, "model": 1}, index=(d, i, 0),
+                                     data_ranks=[i, 2 + i], seq_ranks=[2 * d, 2 * d + 1],
+                                     model_ranks=[r])
+        assert got["model2"] == dict(shape={"data": 2, "seq": 1, "model": 2}, index=(d, 0, i),
+                                     data_ranks=[i, 2 + i], seq_ranks=[r],
+                                     model_ranks=[2 * d, 2 * d + 1])
+        assert got["errors"] == ["ValueError"] * 3

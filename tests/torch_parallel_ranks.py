@@ -1,5 +1,6 @@
-"""The rank programs of tests/test_torch_parallel.py, and `spawn`, which runs
-one of them in `world` gloo ranks.
+"""The rank programs of tests/test_torch_parallel.py,
+tests/test_torch_parallel_step.py and tests/test_torch_tp.py, and `spawn`,
+which runs one of them in `world` gloo ranks.
 
 This module imports torch and the port only: the ranks are started with
 `torch.multiprocessing` (spawn), so each imports this module afresh and
@@ -300,13 +301,18 @@ def pipeline_clip(rank, world, root, states: dict, inputs: dict, variants: list)
 
 
 @case
-def trainer(rank, world, root, cfgs: list):
+def trainer(rank, world, root, cfgs: list, tp_min_dim=None):
     """`train_stage2_process` on each config of `cfgs` in turn (a 2-step run,
     its resume to step 3, an unbroken 3-step run): each run's gathered
-    final state (rank 0)."""
+    final state (rank 0). `tp_min_dim` lowers tensor parallelism's
+    `DEFAULT_MIN_DIM` in the ranks (the tiny models have no 1280-wide
+    dense)."""
     from hallo_tpu_torch.config import DotDict
+    from hallo_tpu_torch.parallel import tp
     from hallo_tpu_torch.train.stage2 import train_stage2_process
 
+    if tp_min_dim is not None:
+        tp.DEFAULT_MIN_DIM = tp_min_dim
     out = []
     for cfg in cfgs:
         sd = train_stage2_process(DotDict.wrap(cfg), device="cpu").state_dict()
@@ -317,19 +323,272 @@ def trainer(rank, world, root, cfgs: list):
 # --- (g) the mesh ----------------------------------------------------------------
 
 
+def mesh_layout(mesh) -> dict:
+    """A mesh's shape, this rank's indices and its groups' ranks."""
+    return dict(shape=mesh.shape, index=(mesh.data_index, mesh.seq_index, mesh.model_index),
+                **{f"{axis}_ranks": dist.get_process_group_ranks(mesh.group(axis))
+                   for axis in ("data", "seq", "model")})
+
+
 @case
 def mesh_groups(rank, world, root, path: str):
-    """The mesh of the parallel config `path`: this rank's indices and its
-    groups' ranks, and the errors of meshes that cannot be built here."""
+    """The mesh of the parallel config `path` and the (data, model 2) mesh
+    (`mesh_layout`), and the errors of meshes that cannot be built here."""
     from hallo_tpu_torch.parallel.mesh import mesh_from_config
 
     mesh = mesh_from_config(path)
     errors = []
-    for kw in (dict(n_data=world + 1), dict(n_model=2), dict(n_seq=world + 1)):
+    for kw in (dict(n_data=world + 1), dict(n_seq=world + 1), dict(n_seq=2, n_model=world)):
         try:
             make_mesh(**kw)
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             errors.append(type(e).__name__)
-    return dict(shape=mesh.shape, data_index=mesh.data_index, seq_index=mesh.seq_index,
-                data_ranks=dist.get_process_group_ranks(mesh.data_group),
-                seq_ranks=dist.get_process_group_ranks(mesh.seq_group), errors=errors)
+    return dict(config=mesh_layout(mesh), model2=mesh_layout(make_mesh(n_model=2)),
+                errors=errors)
+
+
+# --- (i) tensor parallelism ------------------------------------------------------
+
+
+def tp_layer_kinds():
+    """Each kind of sharded layer at the tiny widths (min_dim 16), with
+    every parameter perturbed: a column and a row dense, a GEGLU
+    feed-forward (net.0.proj column, net.2 row), cross-attentions of 4 and 2
+    heads with pre-projected rows and a per-key bias (whole heads at world
+    2; at world 4 the 2-head one splits a head), a temporal attention."""
+    from hallo_tpu_torch.models.layers import (
+        CrossAttention, FeedForward, TemporalSelfAttention, TokenConv1x1)
+
+    torch.manual_seed(0)
+    kinds = dict(column=torch.nn.Linear(16, 32), row=torch.nn.Linear(32, 16),
+                 token_conv=TokenConv1x1(16, 32), geglu=FeedForward(16),
+                 attention_4=CrossAttention(16, 4, 4, context_dim=12),
+                 attention_2=CrossAttention(16, 2, 8, context_dim=12),
+                 temporal=TemporalSelfAttention(16, 4, 4))
+    with torch.no_grad():
+        for module in kinds.values():
+            for p in module.parameters():
+                p.add_(0.5 * torch.randn(p.shape))
+    return kinds
+
+
+def tp_layer_inputs(name: str, gen: torch.Generator) -> list:
+    def r(*shape):
+        return torch.randn(shape, generator=gen).requires_grad_(True)
+
+    if name == "temporal":
+        return [r(2, 5, 3, 16)]
+    if name.startswith("attention"):
+        return [r(2, 6, 16), r(2, 7, 12), torch.randn(2, 10, generator=gen),
+                (r(2, 3, 16), r(2, 3, 16))]
+    return [r(2, 6, 32 if name == "row" else 16)]
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def tp_layer_errors(mesh) -> dict:
+    """Each `tp_layer_kinds` module sharded over the mesh's model group
+    against its unsharded copy on the same inputs: the largest relative
+    error of the output, of every input's gradient and of every
+    parameter's gradient (a sharded one against its piece of the plain
+    gradient), the parameters sharded and the heads each attention runs on
+    this rank."""
+    import copy
+
+    from hallo_tpu_torch.parallel.tp import shard_modules, tp_plan
+
+    world, r, out = mesh.n_model, mesh.model_index, {}
+    for name, module in tp_layer_kinds().items():
+        holder = torch.nn.ModuleList([module])
+        plain = copy.deepcopy(holder)
+        plan = tp_plan({"m": holder}, world, 16)
+        heads = getattr(module, "heads", None)
+        shard_modules({"m": holder}, plan, mesh)
+        # an attention run on this rank's heads takes its heads of the
+        # pre-projected rows (the caller slices them; the whole ones raise)
+        local_heads = getattr(module, "heads", None) != heads
+        runs = []
+        for mod in (holder, plain):
+            gen = torch.Generator().manual_seed(1)
+            args = tp_layer_inputs(name, gen)
+            extra = len(args) > 3 and local_heads
+            if extra and mod is holder:
+                try:
+                    mod[0](*args)
+                except ValueError as e:
+                    assert "extra_kv" in str(e), e
+                else:
+                    raise AssertionError(f"{name}: the whole extra_kv did not raise")
+                args[3] = tuple(t.detach().chunk(world, -1)[r].requires_grad_(True)
+                                for t in args[3])
+            y = mod[0](*args)
+            (y * torch.randn(y.shape, generator=gen)).sum().backward()
+            leaves = [a for a in args[:2] if a.requires_grad] + list(args[3] if len(args) > 3
+                                                                    else ())
+            runs.append((y.detach(), [t.grad for t in leaves],
+                         {k: p.grad for k, p in mod.named_parameters()}))
+        (y, gx, gp), (y0, gx0, gp0) = runs
+        if extra:  # the plain gradient's piece of the rows this rank took
+            gx0 = gx0[:2] + [g.chunk(world, -1)[r] for g in gx0[2:]]
+        errs = [rel_err(y, y0)] + [rel_err(a, b) for a, b in zip(gx, gx0)]
+        for k, g in gp.items():
+            shard = plan[f"m.{k}"]
+            want = gp0[k] if shard is None else shard.piece(gp0[k], world, mesh.model_index)
+            errs.append(rel_err(g, want))
+        out[name] = dict(err=max(errs), sharded=sum(s is not None for s in plan.values()),
+                         heads=getattr(module, "heads", None))
+    return out
+
+
+def tp_models(states: dict, mesh, min_dim: int, trainable_fn):
+    """The tiny models from `states`, sharded over the mesh's model group
+    at `min_dim`: (models, plan, trainable)."""
+    from hallo_tpu_torch.parallel.tp import shard_modules, tp_plan
+    from hallo_tpu_torch.train.state import unfreeze
+    from hallo_tpu_torch.utils.factory import build_models
+
+    models = build_models("tiny", device="cpu")
+    for name, module in models.modules().items():
+        module.load_state_dict({k: _t(v) for k, v in states[name].items()})
+    plan = tp_plan(models.modules(), mesh.n_model, min_dim)
+    shard_modules(models.modules(), plan, mesh)
+    return models, plan, unfreeze(models.modules(), trainable_fn)
+
+
+def tp_steps(rank, mesh, min_dim: int, states: dict, batch: dict, opt_kw: dict,
+             train_kw: dict, fault: bool) -> dict:
+    """The stage-2 step over `mesh` with the tiny models sharded at
+    `min_dim` (ZeRO-2 AdamW; `batch` the global one, with its noise and
+    timesteps): two steps, each step's metrics and whole gradient, and the
+    gathered masters after them (rank 0); with `fault`, then one step with
+    the planted fault, `all_reduce_sum` (whose backward sums the cotangents
+    over the group) in place of g."""
+    from hallo_tpu_torch.parallel import collectives, tp
+    from hallo_tpu_torch.train.state import OptimizerConfig, Zero, make_optimizer, \
+        stage2_trainable
+    from hallo_tpu_torch.train.step import TrainConfig, make_train_step, step_generator
+
+    result = {}
+    for run, steps in (("tp", 2), ("fault", 1))[:2 if fault else 1]:
+        models, plan, trainable = tp_models(states, mesh, min_dim, stage2_trainable)
+        opt = make_optimizer(OptimizerConfig(**opt_kw))
+        zero = Zero(mesh, trainable, opt, tp=plan)
+        capture = CapturingZeroStep(zero)
+        state = zero.create(trainable)
+        step = make_train_step(models, trainable, opt, TrainConfig(**train_kw), mesh=mesh)
+        mine, metrics = local_batch(batch, mesh), []
+        real = tp.reduce_from_group
+        if run == "fault":
+            tp.reduce_from_group = collectives.all_reduce_sum
+        try:
+            for i in range(steps):
+                state, m = step(state, mine, step_generator(0, i, "cpu"))
+                metrics.append(dict(m, grads=capture.grads))
+        finally:
+            tp.reduce_from_group = real
+        params = state.state_dict()["params"]  # a collective: every rank gathers
+        result[run] = dict(steps=metrics, params=params if rank == 0 else None,
+                           sharded=sum(s is not None for s in plan.values()))
+    return result
+
+
+def stage1_tp_batch(seed: int = 0, b: int = 2, h: int = 64) -> dict:
+    rng = np.random.default_rng(seed)
+    return dict(
+        pixel_values=rng.uniform(-1, 1, (b, 1, h, h, 3)).astype(np.float32),
+        ref_pixels=rng.uniform(-1, 1, (b, h, h, 3)).astype(np.float32),
+        face_emb=rng.normal(size=(b, 16)).astype(np.float32),
+        face_region=rng.uniform(0, 1, (b, h, h, 3)).astype(np.float32),
+        noise=rng.normal(size=(b, 1, h // 8, h // 8, 4)).astype(np.float32),
+        timesteps=np.array([999, 321][:b], np.int32),
+    )
+
+
+def tp_stage1(rank, mesh, variants: list, min_dim: int = 16) -> list:
+    """The stage-1 step of the tiny 2D models (every parameter perturbed,
+    64x64, B 2) over `mesh` (data 1), against the same step on one process
+    (computed on rank 0 alone), for each optimizer settings of `variants`:
+    two steps' metrics, the gathered state after them (rank 0) and the
+    global norm that counts the replicated leaves once a rank (the fault the
+    clip's norm must not have) beside the one `Zero.norm` gave."""
+    import copy
+
+    from hallo_tpu_torch.parallel.tp import shard_modules, tp_plan
+    from hallo_tpu_torch.train.state import (
+        OptimizerConfig, TrainState, Zero, make_optimizer, stage1_trainable, unfreeze)
+    from hallo_tpu_torch.train.step import TrainConfig, make_train_step, step_generator
+    from hallo_tpu_torch.utils.factory import build_models
+
+    world = mesh.n_model
+    torch.manual_seed(0)
+    base = build_models("tiny", device="cpu", seed=0, unet_overrides=dict(
+        use_motion_module=False, use_audio_module=False))
+    with torch.no_grad():
+        for module in base.modules().values():
+            for p in module.parameters():
+                p.add_(0.05 * torch.randn(p.shape))
+    batch = stage1_tp_batch()
+    cfg = TrainConfig(stage=1, uncond_img_ratio=0.0, uncond_audio_ratio=0.0,
+                      uncond_ia_ratio=0.0, start_ratio=0.0)
+    out = []
+    for opt_kw in variants:
+        opt_kw = dict(opt_kw, lr_warmup_steps=0)
+        runs = {}
+        for sharded in (False, True) if rank == 0 else (True,):
+            models = copy.deepcopy(base)
+            plan = tp_plan(models.modules(), world, min_dim)
+            if sharded:
+                shard_modules(models.modules(), plan, mesh)
+            trainable = unfreeze(models.modules(), stage1_trainable)
+            opt = make_optimizer(OptimizerConfig(**opt_kw))
+            norms = []
+            if sharded:
+                zero = Zero(mesh, trainable, opt, tp=plan)
+                zero.norm = recording_norm(zero.norm, mesh.model_group, norms)
+                state = zero.create(trainable)
+            else:
+                state = TrainState.create(trainable, opt)
+            step = make_train_step(models, trainable, opt, cfg, mesh=mesh if sharded else None)
+            metrics = []
+            for i in range(2):
+                state, m = step(state, batch, step_generator(0, i, "cpu"))
+                metrics.append(m)
+            sd = state.state_dict()  # sharded: a collective, every rank gathers
+            runs["tp" if sharded else "one"] = dict(
+                steps=metrics, state=sd if rank == 0 else None,
+                faulty_norms=norms if sharded else None)
+        out.append(runs)
+    return out
+
+
+def recording_norm(norm, group, faulty: list):
+    """`norm` (Zero.norm), appending to `faulty` at each call the norm that
+    sums every local square over the model group: a replicated leaf counted
+    once a rank."""
+    def recording(tensors):
+        local = torch.stack([t.float().square().sum() for t in tensors]).sum()
+        dist.all_reduce(local, group=group)
+        faulty.append(float(local.sqrt()))
+        return norm(tensors)
+
+    return recording
+
+
+@case
+def tensor_parallel(rank, world, root, states: dict, batch: dict, meshes: list,
+                    opt_kw: dict, train_kw: dict, stage1_variants: list):
+    """Tensor parallelism at `world`: the layer kinds at model = world
+    (`tp_layer_errors`); the stage-2 step over each (n_data, n_seq, n_model,
+    min_dim, fault) of `meshes` (`tp_steps`); with `stage1_variants`, the
+    stage-1 step at model = world against one process (`tp_stage1`)."""
+    tp_mesh = make_mesh(n_data=1, n_model=world)
+    out = dict(layers=tp_layer_errors(tp_mesh), steps=[], stage1=None)
+    for n_data, n_seq, n_model, min_dim, fault in meshes:
+        mesh = make_mesh(n_data=n_data, n_seq=n_seq, n_model=n_model)
+        out["steps"].append(tp_steps(rank, mesh, min_dim, states, batch, opt_kw, train_kw,
+                                     fault))
+    if stage1_variants:
+        out["stage1"] = tp_stage1(rank, tp_mesh, stage1_variants)
+    return out
