@@ -163,6 +163,18 @@ Phases, each synchronised so that a device fault surfaces where it happened:
    + 2 frames, B 2 and 4), and K1, K2 and K5 at the tensor-parallel head
    counts (the 1280-wide levels' 8 heads of d 160 split over 2 and 4
    ranks).
+15. quality (run after phase 5): the fused nearest-2x + 3x3 up-conv
+   (`models/layers.py`, the default) against the interpolate-then-conv form
+   (HALLO_FUSED_UPSAMPLE=0), both on the card in bf16, at the VAE decoder's
+   three upsamplers (B 16) and the denoiser's three up blocks (B 32), with
+   a planted fault (a row of taps zeroed), each form's ms and working
+   memory; phase 4's VAE decode of one clip and its 4-step clip, fused
+   against plain in turns, the decoded pixels within SLICE_RTOL; a slice
+   of `eval_cache_quality`'s matrix (full width, bf16, 256^2, seed 0:
+   exact DDIM at 8 steps against the CLI's fast and turbo profiles, PSNR,
+   SSIM, mean abs difference, seconds a clip); `lpips_from_uint8` on the
+   card against the CPU on a random lpips-alex state dict, with a planted
+   fault (the lins x1.01).
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`;
@@ -196,7 +208,7 @@ import torch.nn.functional as F
 from safetensors.torch import load_file, save_file
 
 from hallo_tpu_torch import config as cfglib
-from hallo_tpu_torch import data_preprocess, extract_meta_info, inference
+from hallo_tpu_torch import data_preprocess, eval_cache_quality, extract_meta_info, inference
 from hallo_tpu_torch.config import SchedulerConfig, load_config, load_yaml
 from hallo_tpu_torch.convert import onnx_torch, synthetic
 from hallo_tpu_torch.convert.onnx_torch import OnnxExecutor
@@ -229,6 +241,7 @@ from hallo_tpu_torch.train.state import (
 from hallo_tpu_torch.train.step import (
     TrainConfig, make_loss_fn, make_train_step, step_generator)
 from hallo_tpu_torch.utils import checkpoint as ckpt
+from hallo_tpu_torch.utils import lpips, profiling
 from hallo_tpu_torch.utils.factory import build_models, build_wav2vec, dummy_clip_inputs
 from hallo_tpu_torch.utils.video import read_frames, write_video
 
@@ -361,6 +374,27 @@ STATIC_RTOL = 5e-2
 # gradient reaches a K/V projection, nor the ReferenceNet's features through
 # the denoiser's K/V concat), must exceed it for the ReferenceNet.
 STAGE1_RTOL = TRAIN_RTOL
+
+# The quality phase: the up-conv at the VAE decoder's three
+# upsamplers (B 16 frames; low-resolution input sizes) and the denoiser's
+# three up blocks (CFG batch 32 = 2 x 16 frames at 512^2). In bf16 the fused
+# form's tap sums round (as JAX's do): 2.98e-3 to 3.01e-3 relative L2 against
+# the plain form on an H100 (3.5e-3 to 3.6e-3 on the CPU), within
+# KERNEL_RTOL; the planted fault reads 0.57.
+UPCONV_SHAPES = (
+    ("decoder 512 ch 64^2", 16, 512, 64),
+    ("decoder 512 ch 128^2", 16, 512, 128),
+    ("decoder 256 ch 256^2", 16, 256, 256),
+    ("up block 1280 ch 8^2", 32, 1280, 8),
+    ("up block 1280 ch 16^2", 32, 1280, 16),
+    ("up block 640 ch 32^2", 32, 640, 32),
+)
+QUALITY_SIZE, QUALITY_STEPS = 256, 8
+# LPIPS on the card against the CPU, both fp32 with TF32 off: only the
+# convolutions' summation order differs (6.5e-8 relative on an H100). The
+# planted fault scales the lins, which moves the distance by 1e-2 relative.
+LPIPS_RTOL = 1e-3
+LPIPS_FAULT_SCALE = 1.01
 
 # The parallel phase (`phase_parallel`): its ranks, one a card, write their
 # result under PARALLEL_DIR and must end within PARALLEL_TIMEOUT_S; a minute
@@ -2843,8 +2877,9 @@ def captured_step(models: HalloModels, trainable: dict, mesh, batch: dict,
     there).
     `tp`: the tensor-parallel plan the models
     were sharded by (gradients and masters gathered whole). With
-    `profiled`, one more step after those under torch.profiler: its wall
-    and device busy ms, and the device ms and launches of NCCL's kernels."""
+    `profiled`, one more step after those under `profiling.trace`: its wall
+    and device busy ms, the device ms and launches of NCCL's kernels, and
+    the device ms by category."""
     opt = AdamW(OptimizerConfig(learning_rate=1e-5, lr_warmup_steps=1))
     captured = {}
     if mesh is None:
@@ -2894,23 +2929,28 @@ def captured_step(models: HalloModels, trainable: dict, mesh, batch: dict,
     out = dict(first, masters={k: v.to("cpu", copy=True) for k, v in masters.items()},
                seconds=seconds, peak=peak, launches=launches)
     if profiled:
-        from torch.profiler import ProfilerActivity, profile
-
         # the host's activity too: with the device's alone NCCL's kernels went
         # unseen; the CPU's alone on a rehearsal
-        activities = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if models.device.type == "cuda" else [])
-        with profile(activities=activities) as prof:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        trace_dir = os.path.join(_build.BUILD_DIR, "traces", f"parallel_step_rank{rank}")
+        with profiling.trace(trace_dir):
             t0 = time.perf_counter()
             step(state, batch, step_generator(0, steps, models.device))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        rows = [(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total, e.count,
-                 e.key) for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-        nccl = [r for r in rows if "nccl" in r[2].lower()]
-        out["profile"] = dict(wall_ms=wall * 1e3, busy_ms=sum(r[0] for r in rows) / 1e3,
-                              nccl_ms=sum(r[0] for r in nccl) / 1e3,
-                              nccl_launches=sum(r[1] for r in nccl))
+        summary = profiling.summarize_device_time(trace_dir)
+        # NCCL's device time as every device row named "nccl": its kernels
+        # and c10d's "nccl:*" spans (at group size 1 an all_gather's span
+        # holds a copy, no NCCL kernel)
+        nccl = [(ms, summary["annotation_counts"][k]) for k, ms in
+                summary["annotations_ms"].items() if "nccl" in k.lower()]
+        nccl.append((summary["by_category_ms"].get("nccl", 0.0),
+                     summary["launches_by_category"].get("nccl", 0)))
+        out["profile"] = dict(wall_ms=wall * 1e3, busy_ms=summary["total_ms"],
+                              nccl_ms=sum(ms for ms, _ in nccl),
+                              nccl_launches=sum(n for _, n in nccl),
+                              by_category_ms={k: round(v, 3) for k, v in
+                                              summary["by_category_ms"].items()})
     return out
 
 
@@ -3254,13 +3294,14 @@ def phase_parallel(inputs: dict, steps: int, shapes: dict = PARALLEL_SHAPES,
 
 
 def profile_call(what: str, fn, out_path: str) -> list:
-    """`fn` under torch.profiler: device time by kernel (top rows here, all
-    rows to `out_path`) and the device's busy share of the wall time.
-    Returns the rows (ms, count, kernel name) and the wall ms."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """`fn` under `profiling.trace` (torch.profiler; its Chrome trace under
+    the build directory): device time by kernel (top rows here, all rows to
+    `out_path`), by category (`profiling.summarize_device_time`) and the
+    device's busy share of the wall time. Returns the rows (ms, count,
+    kernel name) and the wall ms."""
+    trace_dir = os.path.join(_build.BUILD_DIR, "traces", what.replace(" ", "_"))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(trace_dir) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3278,8 +3319,14 @@ def profile_call(what: str, fn, out_path: str) -> list:
     host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
                    if not str(e.device_type).endswith("CUDA") and e.self_cpu_time_total > 0),
                   reverse=True)
+    summary = profiling.summarize_device_time(trace_dir)
+    total = max(summary["total_ms"], 1e-9)
     lines = [f"profiled {what}: wall {wall * 1e3:.1f} ms (profiler on), device busy "
              f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of wall)"]
+    lines += [f"by category (trace: {summary['total_ms']:.1f} ms busy, "
+              f"{summary['launch_calls']} kernel-launch calls): " + ", ".join(
+                  f"{k} {ms:.3f} ms {100 * ms / total:.1f}% x{summary['launches_by_category'][k]}"
+                  for k, ms in summary["by_category_ms"].items())]
     lines += [f"{ms:10.3f} ms {100 * ms / busy:5.1f}% x{n:<6d} {name[:110]}"
               for ms, n, name in rows]
     lines += [f"host: self CPU time by op, {sum(r[0] for r in host):.1f} ms in all"]
@@ -3287,9 +3334,194 @@ def profile_call(what: str, fn, out_path: str) -> list:
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     with open(out_path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
-    for line in lines[:31]:
+    for line in lines[:32]:
         log(line)
     return rows, wall * 1e3
+
+
+@contextlib.contextmanager
+def fused_upsample(on: bool):
+    """HALLO_FUSED_UPSAMPLE at "1" or "0" for the block (read at call time
+    by `layers.Upsample2x`), then as it was."""
+    saved = os.environ.get("HALLO_FUSED_UPSAMPLE")
+    os.environ["HALLO_FUSED_UPSAMPLE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("HALLO_FUSED_UPSAMPLE", None)
+        else:
+            os.environ["HALLO_FUSED_UPSAMPLE"] = saved
+
+
+def in_turns(fns: dict, n: int, timer) -> dict:
+    """Each of the two `fns` timed by `timer` in the order a, b, b, a, `n`
+    times over: name -> the list of its times."""
+    (a, fa), (b, fb) = fns.items()
+    out = {a: [], b: []}
+    for _ in range(n):
+        for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+            out[name].append(timer(fn))
+    return out
+
+
+def upconv_checks(dev, shapes=UPCONV_SHAPES, iters: int = 10) -> list:
+    """The fused nearest-2x + 3x3 up-conv against the interpolate-then-conv
+    form (HALLO_FUSED_UPSAMPLE=0), both on the card in bf16, at the VAE
+    decoder's and the denoiser's up-block shapes: max abs error (of max
+    |plain|) within KERNEL_ATOL and relative L2 within KERNEL_RTOL, a planted
+    fault (the fused form with one row of taps zeroed) beyond the latter;
+    the ms of each form (CUDA events, in turns) and its peak memory."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rows = []
+    for what, n, c, hw in shapes:
+        up = layers.Upsample2x(c).to(device=dev, dtype=torch.bfloat16)
+        x = torch.randn((n, c, hw, hw), generator=gen, device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            fused = layers.fused_up2x_conv3x3(x, up.conv.weight, up.conv.bias)
+            with fused_upsample(False):
+                plain = up(x)
+            bad_w = up.conv.weight.clone()
+            bad_w[:, :, 2] = 0
+            fault = layers.fused_up2x_conv3x3(x, bad_w, up.conv.bias)
+        _, scaled, rel = _errors(fused, plain)
+        fault_err = rel_err(fault, plain)
+        if scaled > KERNEL_ATOL or rel > KERNEL_RTOL or not fault_err > KERNEL_RTOL:
+            raise RuntimeError(f"fused up-conv at {what}: max abs {scaled:.3e} of max |plain|, "
+                               f"rel {rel:.3e}, planted fault {fault_err:.3e}")
+        del fused, plain, fault
+
+        def form(on):
+            def run():
+                with fused_upsample(on), torch.no_grad():
+                    up(x)
+            return run
+
+        def peak(fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+        ms = in_turns({"fused": form(True), "plain": form(False)}, 1,
+                      lambda fn: cuda_ms(fn, iters))
+        row = dict(shape=what, n=n, c=c, hw=hw, max_abs_of_max=scaled, rel=rel,
+                   fault_rel=fault_err, fused_ms=ms["fused"], plain_ms=ms["plain"],
+                   fused_peak_mib=peak(form(True)), plain_peak_mib=peak(form(False)))
+        log(f"up-conv {what} (N {n}): max abs {row['max_abs_of_max']:.3e} of max |plain|, "
+            f"rel {rel:.3e} (planted fault {fault_err:.3e}); ms fused "
+            f"{[round(v, 4) for v in ms['fused']]}, plain {[round(v, 4) for v in ms['plain']]}; "
+            f"working memory fused {row['fused_peak_mib']:.0f} MiB, plain "
+            f"{row['plain_peak_mib']:.0f} MiB")
+        rows.append(row)
+    return rows
+
+
+def fused_decode_and_clip(slice_: dict, repeats: int = 2) -> dict:
+    """Phase 4's VAE decode of one clip (B 16 latents, 512^2) and its
+    4-step clip, fused against HALLO_FUSED_UPSAMPLE=0 in turns (seconds,
+    host clock around synchronised work). The two decodes' pixels agree
+    within SLICE_RTOL (bf16 rounds the fused form's tap sums)."""
+    models, pipe = slice_["models"], slice_["pipe"]
+    clip, h = slice_["clip"], slice_["h"]
+    gen = torch.Generator(device=models.device).manual_seed(7)
+    lat = torch.randn((clip, 4, h // 8, h // 8), generator=gen, device=models.device).to(
+        models.vae.post_quant_conv.weight.dtype)
+    with torch.inference_mode():
+        with fused_upsample(True):
+            fused = models.vae.decode(lat)
+        with fused_upsample(False):
+            plain = models.vae.decode(lat)
+    err = rel_err(fused, plain)
+    if not err <= SLICE_RTOL:
+        raise RuntimeError(f"VAE decode fused against plain: rel {err:.3e} > {SLICE_RTOL}")
+    del fused, plain
+
+    def seconds(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def under(on, fn):
+        def run():
+            with fused_upsample(on), torch.inference_mode():
+                fn()
+        return run
+
+    def decode():
+        models.vae.decode(lat)
+
+    one = dict(slice_["inputs"], audio_windows=slice_["inputs"]["audio_windows"][:clip])
+
+    def one_clip():
+        pipe(**one, seed=1)
+
+    for on in (True, False):
+        under(on, decode)()  # warm-up of each form's algorithms
+    dec = in_turns({"fused": under(True, decode), "plain": under(False, decode)}, repeats,
+                   seconds)
+    clips = in_turns({"fused": under(True, one_clip), "plain": under(False, one_clip)}, 1,
+                     seconds)
+    log(f"VAE decode of one clip (B {clip}, {h}^2, {lat.dtype}), fused against "
+        f"HALLO_FUSED_UPSAMPLE=0 in turns: pixels rel {err:.3e}; seconds fused "
+        f"{[round(v, 4) for v in dec['fused']]}, plain {[round(v, 4) for v in dec['plain']]}; "
+        f"a {slice_['steps']}-step clip fused {[round(v, 4) for v in clips['fused']]}, plain "
+        f"{[round(v, 4) for v in clips['plain']]}")
+    return dict(decode_rel=err, decode_s=dec, clip_s=clips)
+
+
+def phase_quality(dev, slice_: dict, scale: str = "full", size: int = QUALITY_SIZE,
+                  steps: int = QUALITY_STEPS) -> dict:
+    """The quality tail: the fused up-conv against the plain form
+    (`upconv_checks`, `fused_decode_and_clip` on phase 4's models), then a
+    slice of `eval_cache_quality`'s matrix at `size`^2, one seed, exact DDIM
+    at `steps` against the CLI's fast and turbo profiles (finite PSNR, SSIM in
+    [-1, 1], frames of the clip's shape), then `lpips_from_uint8` on the card
+    against the CPU on a random lpips-alex state dict, the fast and exact
+    frames as input (within LPIPS_RTOL; lins x1.01 on the card must exceed it)."""
+    out = dict(upconv=upconv_checks(dev), **fused_decode_and_clip(slice_))
+    modes = [m for m in eval_cache_quality.mode_table([0.10])
+             if m.cli_profile(steps) in ("fast", "turbo")]
+    frames = {}
+    sections = eval_cache_quality.run_matrix(
+        scale, [size], [0], steps, modes, dev,
+        on_frames=lambda sz, seed, name, fr: frames.__setitem__(name, fr))
+    _, clip, _ = eval_cache_quality.scale_settings(scale)
+    for name, fr in frames.items():
+        if fr.shape != (1, clip, size, size, 3) or fr.dtype != np.uint8:
+            raise RuntimeError(f"quality matrix {name}: frames {fr.shape} {fr.dtype}")
+    for row in sections[0]["modes"]:
+        ok = (np.isfinite(row["psnr_vs_exact_db"]) and -1.0 <= row["ssim_vs_exact"] <= 1.0
+              and np.isfinite(row["mean_abs_diff"]))
+        log(f"quality {size}^2, seed 0, against exact DDIM at {steps}: {row['mode']} "
+            f"(--profile {row['cli_profile']}): PSNR {row['psnr_vs_exact_db']} dB, SSIM "
+            f"{row['ssim_vs_exact']}, MAD {row['mean_abs_diff']}, {row['clip_seconds']} s a clip "
+            f"against exact {sections[0]['exact_clip_seconds']} s, speedup "
+            f"{row['speedup_vs_exact']}")
+        if not ok:
+            raise RuntimeError(f"quality matrix row {row}")
+    if {row["cli_profile"] for row in sections[0]["modes"]} != {"fast", "turbo"}:
+        raise RuntimeError(f"quality matrix rows {[r['mode'] for r in sections[0]['modes']]}")
+
+    params = lpips.convert_lpips_state_dict(lpips.random_state_dict(0))
+    fast = next(fr for name, fr in frames.items()
+                if name == next(r["mode"] for r in sections[0]["modes"]
+                                if r["cli_profile"] == "fast"))
+    on_card = lpips.lpips_from_uint8(params, fast, frames["exact"], device=dev)
+    on_cpu = lpips.lpips_from_uint8(params, fast, frames["exact"], device="cpu")
+    bad = dict(params, lins=[lin * LPIPS_FAULT_SCALE for lin in params["lins"]])
+    fault = lpips.lpips_from_uint8(bad, fast, frames["exact"], device=dev)
+    err, fault_err = abs(on_card - on_cpu) / abs(on_cpu), abs(fault - on_cpu) / abs(on_cpu)
+    log(f"LPIPS (random lpips-alex weights) fast against exact, {clip} frames at {size}^2: card "
+        f"{on_card:.6f}, CPU {on_cpu:.6f}, rel {err:.3e} (limit {LPIPS_RTOL}; planted lins "
+        f"x{LPIPS_FAULT_SCALE}: {fault_err:.3e})")
+    if not (err <= LPIPS_RTOL < fault_err):
+        raise RuntimeError(f"LPIPS card against CPU: rel {err:.3e}, fault {fault_err:.3e}")
+    return dict(out, sections=sections, lpips=(on_card, on_cpu))
 
 
 def phase_profile(pipe: FaceAnimatePipeline, inputs: dict, out_path: str) -> None:
@@ -3339,6 +3571,8 @@ def main() -> None:
     phase_profiles(slice_["models"], cpu, slice_)
     mark("profiles")
     del cpu
+    phase_quality(dev, slice_)
+    mark("quality")
     train_profile = static_profile = stage1_profile = ""
     if args.profile_out:
         root, ext = os.path.splitext(args.profile_out)

@@ -7,10 +7,11 @@ The full-width models (random weights from a seed, bf16, per-block
 gradient checkpointing, with `--remat-inner` per-layer too, as stage2.yaml
 trains) take 12 steps of `make_train_step` at 512^2, `--batch` samples (1
 by default; stage2.yaml's is 4), 14 + 2 frames, on a synthetic batch from
-a seed; then one more step under torch.profiler counts the kernel launches
-and the device's busy time. It prints the card's name and power limit, then one JSON line.
-Times on one card spread between runs (PERF.md): compare two versions of
-the code only within one machine session, in turns.
+a seed; then one more step under `utils.profiling.trace` counts the kernel
+launches and the device's busy time, by category too. It prints the card's
+name and power limit, then one JSON line. Times on one card spread between
+runs (PERF.md): compare two versions of the code only within one machine
+session, in turns.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from hallo_tpu_torch.pipelines.face_animate import HalloModels
 from hallo_tpu_torch.train.state import (
     AdamW, OptimizerConfig, TrainState, stage2_trainable, unfreeze)
 from hallo_tpu_torch.train.step import TrainConfig, make_train_step, step_generator
+from hallo_tpu_torch.utils import profiling
 from hallo_tpu_torch.utils.factory import build_models
 
 STEPS = 12  # timed steps; the median leaves out the first two (warm-up)
@@ -71,6 +73,8 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--remat-inner", action="store_true",
                     help="nested per-layer checkpointing inside each block")
+    ap.add_argument("--trace-dir", default=".cache/bench_step",
+                    help="where the profiled step's Chrome trace is written")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_step: no CUDA device")
@@ -97,25 +101,18 @@ def main() -> None:
         losses.append(metrics["loss"])
     peak = torch.cuda.max_memory_allocated()
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(args.trace_dir):
         t0 = time.perf_counter()
         step(state, batch, step_generator(0, STEPS, dev))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = busy_us = 0
-    for e in prof.key_averages():
-        if "LaunchKernel" in e.key:
-            launches += e.count
-        if str(e.device_type).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            busy_us += e.self_cuda_time_total if us is None else us
+    summary = profiling.summarize_device_time(args.trace_dir)
     print(json.dumps(dict(
         batch=args.batch, remat_inner=args.remat_inner, seconds=seconds,
         median_after_warmup=float(np.median(seconds[2:])), losses=losses,
-        peak_gib=peak / 2**30, profiled_wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
-        kernel_launch_calls=launches)), flush=True)
+        peak_gib=peak / 2**30, profiled_wall_ms=wall * 1e3, device_busy_ms=summary["total_ms"],
+        kernel_launch_calls=summary["launch_calls"],
+        device_ms_by_category=summary["by_category_ms"])), flush=True)
 
 
 if __name__ == "__main__":
