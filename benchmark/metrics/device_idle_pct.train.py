@@ -1,0 +1,8 @@
+"""100 x (1 - the union of the card's kernel, memcpy and memset intervals
+over the traced train step's wall span)."""
+
+
+def read(ctx):
+    if ctx.kind != "train" or ctx.slice.wall_ns <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.slice.busy_ns() / ctx.slice.wall_ns)
