@@ -49,7 +49,7 @@ from hallo_tpu_torch.data.image_processor import ImageProcessor
 from hallo_tpu_torch.pipelines.face_animate import (
     FaceAnimatePipeline, HalloModels, window_audio_embeddings)
 from hallo_tpu_torch.utils.factory import build_wav2vec
-from hallo_tpu_torch.utils.profiling import StageTimer
+from hallo_tpu_torch.utils.profiling import StageTimer, counters
 from hallo_tpu_torch.utils.video import StreamingVideoWriter
 
 logger = logging.getLogger("hallo_tpu_torch.inference")
@@ -311,6 +311,10 @@ def inference_process(args: argparse.Namespace) -> InferenceRun:
         "seconds_per_1s_output": round(total_s / out_seconds, 3) if n_frames else None,
         "smoke_mode": allow_partial,
         "device": str(device),
+        # the program's counters (utils/profiling.py): the denoiser's
+        # evaluations by kind, the host's waits on the card by site, the
+        # kernels' launches
+        "counters": dict(counters()),
     }
     timing_json = getattr(args, "timing_json", None)
     if timing_json:
@@ -358,8 +362,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="override the denoise step count")
     parser.add_argument(
         "--timing_json", type=str, default=None,
-        help="write a JSON stage-timing breakdown and the end-to-end seconds per 1 s "
-             "of output to this path")
+        help="write a JSON stage-timing breakdown, the end-to-end seconds per 1 s "
+             "of output and the program's counters to this path")
     parser.add_argument(
         "--profile", type=str, default=None, choices=("exact", "fast", "turbo"),
         help="named speed profile: exact (default), fast (unipc @ 10) or turbo (unipc @ 8)")

@@ -46,8 +46,13 @@ from hallo_tpu_torch.models.unet_denoise import DenoisingUNet
 from hallo_tpu_torch.models.unet_ref import ReferenceNet
 from hallo_tpu_torch.models.vae import AutoencoderKL
 from hallo_tpu_torch.parallel.collectives import all_gather, all_reduce_sum, local_slice
+from hallo_tpu_torch.utils import profiling
 
 MaskPyramid = Tuple[Tuple[np.ndarray, np.ndarray, np.ndarray], ...]
+
+# the counter of each step kind of `FaceAnimatePipeline.clip`
+STEP_COUNTERS = {"full": "denoiser.eval.full", "cond": "denoiser.eval.cond",
+                 "reuse": "denoiser.step.reuse"}
 
 MODULE_NAMES = (
     "vae", "reference_net", "denoising_net", "face_locator", "image_proj", "audio_proj",
@@ -117,25 +122,11 @@ def window_audio_embeddings(audio_emb: np.ndarray, margin: int = 2) -> np.ndarra
     return pads[idx]
 
 
-class _Phases:
-    """Wall-clock seconds per phase, synchronising the card at each mark;
-    a no-op without a dict to fill."""
-
-    def __init__(self, out: Optional[dict], device: torch.device):
-        self.out, self.device = out, device
-        self.t = self._now() if out is not None else 0.0
-
-    def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if self.out is None:
-            return
-        now = self._now()
-        self.out.setdefault(name, []).append(now - self.t)
-        self.t = now
+def _synced_clock(device: torch.device) -> float:
+    """The host clock after the card's queue has drained (`timings`' marks)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
 
 
 def _relative_change(lat: torch.Tensor, anchor: torch.Tensor, group) -> torch.Tensor:
@@ -260,138 +251,168 @@ class FaceAnimatePipeline:
         timings: Optional[dict] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One clip. Returns (frames (B, F, H, W, 3) uint8, next clip's
-        motion frames (B, M, H, W, 3) in [-1, 1]). With `timings`, also
-        records each step's kind ("full": the CFG pair, "cond": the cond
-        half alone, "reuse": no denoiser call) under "step_kind" and, with
-        the dynamic step cache, each allowed step's accumulated change under
-        "step_cache_score"."""
-        m = self.models
-        dev = m.device
-        phases = _Phases(timings, dev)
-        b, one_m, hp, wp = ref_pixels.shape[:4]
-        group = self.seq_group
-        if group is not None:
-            # this rank's frames of every per-frame input
-            latents = local_slice(latents, group, dim=1)
-            audio_windows = local_slice(audio_windows, group, dim=1)
-        f = latents.shape[1]
+        motion frames (B, M, H, W, 3) in [-1, 1]).
 
-        # --- VAE-encode reference + motion frames (posterior mean) ---
-        flat_ref = ref_pixels.reshape(b * one_m, hp, wp, 3).permute(0, 3, 1, 2)
-        ref_latents = m.vae.encode_mean(flat_ref).repeat(2, 1, 1, 1)  # CFG-major
-        phases.mark("vae_encode")
+        With `timings`, the card is synchronised at the end of each phase
+        and the seconds since the last such mark are appended under
+        "vae_encode", "conditioning", "denoise_step" (one a step) and
+        "vae_decode"; each step's kind ("full": the CFG pair, "cond": the
+        cond half alone, "reuse": no denoiser call) goes under "step_kind"
+        and, with the dynamic step cache, each allowed step's accumulated
+        change under "step_cache_score". Without it nothing synchronises
+        but the waits named in `profiling.wait`.
 
-        # --- identity tokens (uncond = zero embedding) + ReferenceNet ---
-        tokens_c = m.image_proj(face_emb)
-        tokens_u = m.image_proj(torch.zeros_like(face_emb))
-        context = torch.cat([tokens_u, tokens_c], dim=0)  # (2B, T, D)
-        if self.legacy_context_tiling:
-            ref_context = context.repeat(one_m, 1, 1)
-        else:
-            ref_context = context.repeat_interleave(one_m, 0)
-        _, feats = m.reference_net(
-            ref_latents, torch.zeros((), device=dev), ref_context
-        )
-        split = {k: [x.unflatten(0, (2 * b, one_m)) for x in v] for k, v in feats.items()}
-        ref_feats = {k: [x[:, 0] for x in v] for k, v in split.items()}
-        motion_feats = {k: [x[:, 1:] for x in v] for k, v in split.items()}
+        The clip is the span `hallo.clip`, holding `hallo.clip.encode`,
+        `hallo.clip.condition`, one `hallo.step` a sampler step (inside it
+        `hallo.step.denoise` and `hallo.step.sampler`) and
+        `hallo.clip.decode`."""
+        profiling.count("clip")
+        with profiling.span("hallo.clip"):
+            m = self.models
+            dev = m.device
+            last = _synced_clock(dev) if timings is not None else 0.0
 
-        # --- face locator (same mask every frame) and audio tokens, each
-        # with a zeroed CFG-uncond half ---
-        fc = m.face_locator(face_region.permute(0, 3, 1, 2))  # (B, C0, h, w)
-        fc = fc[:, None].expand(-1, f, -1, -1, -1)
-        face_cond = torch.cat([torch.zeros_like(fc), fc], dim=0)
-        audio_tokens = m.audio_proj(audio_windows)
-        audio_tokens = torch.cat([torch.zeros_like(audio_tokens), audio_tokens], dim=0)
-        masks_cfg = tuple(
-            tuple(x[:, None].expand(-1, f, -1).repeat(2, 1, 1).flatten(0, 1) for x in lvl)
-            for lvl in masks
-        )
-        phases.mark("conditioning")
+            def mark(phase: str) -> None:
+                """With `timings`: the seconds since the last mark under `phase`."""
+                nonlocal last
+                if timings is not None:
+                    now = _synced_clock(dev)
+                    timings.setdefault(phase, []).append(now - last)
+                    last = now
 
-        den = m.denoising_net
-        g = self.guidance_scale
+            b, one_m, hp, wp = ref_pixels.shape[:4]
+            group = self.seq_group
+            if group is not None:
+                # this rank's frames of every per-frame input
+                latents = local_slice(latents, group, dim=1)
+                audio_windows = local_slice(audio_windows, group, dim=1)
+            f = latents.shape[1]
 
-        def run_halves(t, lat):
-            # cfg_split: the uncond half runs plain self-attention and the
-            # zero-audio fast path
-            out = den(lat.repeat(2, 1, 1, 1, 1), t, context, ref_feats, motion_feats,
-                      audio_tokens, face_cond, masks_cfg, motion_scale, None, cfg_split=True,
-                      seq_group=group)
-            return out[:b], out[b:]
+            # --- VAE-encode reference + motion frames (posterior mean) ---
+            with profiling.span("hallo.clip.encode"):
+                flat_ref = ref_pixels.reshape(b * one_m, hp, wp, 3).permute(0, 3, 1, 2)
+                ref_latents = m.vae.encode_mean(flat_ref).repeat(2, 1, 1, 1)  # CFG-major
+            mark("vae_encode")
 
-        def run_step(t, lat):
-            un, co = run_halves(t, lat)
-            return (un + g * (co - un) if g > 1.0 else co).float()
-
-        if self.cfg_plan is not None:
-            un_mask, guid_w = self.cfg_plan
-            # every conditioning tensor sliced to the cond half (rows b:;
-            # the masks' rows are CFG-major over B*F); with cfg_split off and
-            # no uncond mask, every sample takes the conditional path
-            cond = (_half(context, b), _half(ref_feats, b), _half(motion_feats, b),
-                    audio_tokens[b:], face_cond[b:], _half(masks_cfg, b * f))
-
-            def run_cached_cfg(i, t, lat, u_prev):
-                """(pred, uncond to cache, kind): the CFG pair where
-                un_mask[i], else the cond half against the cached uncond; the
-                guidance weight is the plan's (1.0 in the cfg_tail steps)."""
-                if un_mask[i]:
-                    un, co = run_halves(t, lat)
-                    un, co, kind = un.float(), co.float(), "full"
+            with profiling.span("hallo.clip.condition"):
+                # --- identity tokens (uncond = zero embedding) + ReferenceNet ---
+                tokens_c = m.image_proj(face_emb)
+                tokens_u = m.image_proj(torch.zeros_like(face_emb))
+                context = torch.cat([tokens_u, tokens_c], dim=0)  # (2B, T, D)
+                if self.legacy_context_tiling:
+                    ref_context = context.repeat(one_m, 1, 1)
                 else:
-                    co = den(lat, t, *cond, motion_scale, None, cfg_split=False,
-                             seq_group=group).float()
-                    un, kind = u_prev, "cond"
-                return un + float(np.float32(guid_w[i])) * (co - un), un, kind
+                    ref_context = context.repeat_interleave(one_m, 0)
+                _, feats = m.reference_net(
+                    ref_latents, torch.zeros((), device=dev), ref_context
+                )
+                split = {k: [x.unflatten(0, (2 * b, one_m)) for x in v] for k, v in feats.items()}
+                ref_feats = {k: [x[:, 0] for x in v] for k, v in split.items()}
+                motion_feats = {k: [x[:, 1:] for x in v] for k, v in split.items()}
 
-        lat = latents.permute(0, 1, 4, 2, 3).float()  # (B, F, 4, h, w)
-        samp = self.sampler
-        carry = samp.init_carry(lat)
-        prev_out = u_prev = torch.zeros_like(lat)
-        anchor, accum = lat, torch.zeros((), device=dev)
-        thresh = float(np.float32(self.step_cache_threshold))
-        kinds, scores = [], []
-        for i in range(samp.num_steps):
-            t = torch.tensor(int(samp.timesteps[i]), device=dev)
-            if self.allow is not None and self.allow[i]:
-                # The dynamic criterion, in fp32 as in the JAX package; the
-                # host needs the decision, so this step synchronises once.
-                diff = _relative_change(lat, anchor, group)
-                score = (accum + diff).item()
-                scores.append(score)
-                reuse = score < thresh
-            else:
-                reuse = self.skip is not None and bool(self.skip[i])
-            if reuse:
-                out, kind = prev_out, "reuse"
+                # --- face locator (same mask every frame) and audio tokens, each
+                # with a zeroed CFG-uncond half ---
+                fc = m.face_locator(face_region.permute(0, 3, 1, 2))  # (B, C0, h, w)
+                fc = fc[:, None].expand(-1, f, -1, -1, -1)
+                face_cond = torch.cat([torch.zeros_like(fc), fc], dim=0)
+                audio_tokens = m.audio_proj(audio_windows)
+                audio_tokens = torch.cat([torch.zeros_like(audio_tokens), audio_tokens], dim=0)
+                masks_cfg = tuple(
+                    tuple(x[:, None].expand(-1, f, -1).repeat(2, 1, 1).flatten(0, 1) for x in lvl)
+                    for lvl in masks
+                )
+            mark("conditioning")
+
+            den = m.denoising_net
+            g = self.guidance_scale
+
+            def run_halves(t, lat):
+                # cfg_split: the uncond half runs plain self-attention and the
+                # zero-audio fast path
+                out = den(lat.repeat(2, 1, 1, 1, 1), t, context, ref_feats, motion_feats,
+                          audio_tokens, face_cond, masks_cfg, motion_scale, None, cfg_split=True,
+                          seq_group=group)
+                return out[:b], out[b:]
+
+            def run_step(t, lat):
+                un, co = run_halves(t, lat)
+                return (un + g * (co - un) if g > 1.0 else co).float()
+
+            if self.cfg_plan is not None:
+                un_mask, guid_w = self.cfg_plan
+                # every conditioning tensor sliced to the cond half (rows b:;
+                # the masks' rows are CFG-major over B*F); with cfg_split off and
+                # no uncond mask, every sample takes the conditional path
+                cond = (_half(context, b), _half(ref_feats, b), _half(motion_feats, b),
+                        audio_tokens[b:], face_cond[b:], _half(masks_cfg, b * f))
+
+                def run_cached_cfg(i, t, lat, u_prev):
+                    """(pred, uncond to cache, kind): the CFG pair where
+                    un_mask[i], else the cond half against the cached uncond; the
+                    guidance weight is the plan's (1.0 in the cfg_tail steps)."""
+                    if un_mask[i]:
+                        un, co = run_halves(t, lat)
+                        un, co, kind = un.float(), co.float(), "full"
+                    else:
+                        co = den(lat, t, *cond, motion_scale, None, cfg_split=False,
+                                 seq_group=group).float()
+                        un, kind = u_prev, "cond"
+                    return un + float(np.float32(guid_w[i])) * (co - un), un, kind
+
+            lat = latents.permute(0, 1, 4, 2, 3).float()  # (B, F, 4, h, w)
+            samp = self.sampler
+            carry = samp.init_carry(lat)
+            prev_out = u_prev = torch.zeros_like(lat)
+            anchor, accum = lat, torch.zeros((), device=dev)
+            thresh = float(np.float32(self.step_cache_threshold))
+            kinds, scores = [], []
+            for i in range(samp.num_steps):
+                with profiling.span("hallo.step"):
+                    with profiling.wait("timestep"):
+                        t = torch.tensor(int(samp.timesteps[i]), device=dev)
+                    if self.allow is not None and self.allow[i]:
+                        # The dynamic criterion, in fp32 as in the JAX package; the
+                        # host needs the decision, so this step synchronises once.
+                        diff = _relative_change(lat, anchor, group)
+                        with profiling.wait("cache_score"):
+                            score = (accum + diff).item()
+                        scores.append(score)
+                        reuse = score < thresh
+                    else:
+                        reuse = self.skip is not None and bool(self.skip[i])
+                    if reuse:
+                        out, kind = prev_out, "reuse"
+                        if self.allow is not None:
+                            accum = accum + diff
+                    else:
+                        with profiling.span("hallo.step.denoise"):
+                            if self.cfg_plan is not None:
+                                out, u_prev, kind = run_cached_cfg(i, t, lat, u_prev)
+                            else:
+                                out, kind = run_step(t, lat), "full"
+                        anchor, accum, prev_out = lat, torch.zeros((), device=dev), out
+                    kinds.append(kind)
+                    profiling.count(STEP_COUNTERS[kind])
+                    with profiling.span("hallo.step.sampler"):
+                        lat, carry = samp.step(i, out, lat, carry)
+                mark("denoise_step")
+            if timings is not None:
+                timings.setdefault("step_kind", []).extend(kinds)
                 if self.allow is not None:
-                    accum = accum + diff
-            else:
-                if self.cfg_plan is not None:
-                    out, u_prev, kind = run_cached_cfg(i, t, lat, u_prev)
-                else:
-                    out, kind = run_step(t, lat), "full"
-                anchor, accum, prev_out = lat, torch.zeros((), device=dev), out
-            kinds.append(kind)
-            lat, carry = samp.step(i, out, lat, carry)
-            phases.mark("denoise_step")
-        if timings is not None:
-            timings.setdefault("step_kind", []).extend(kinds)
-            if self.allow is not None:
-                timings.setdefault("step_cache_score", []).extend(scores)
+                    timings.setdefault("step_cache_score", []).extend(scores)
 
-        # --- batched VAE decode -> uint8 (each rank its frames, gathered);
-        # motion carry from the uint8 ---
-        pix = m.vae.decode(lat.flatten(0, 1))  # (B*F, 3, H, W)
-        pix = torch.clamp(pix.float() / 2 + 0.5, 0.0, 1.0)
-        frames = torch.round(pix * 255.0).to(torch.uint8)
-        frames = frames.permute(0, 2, 3, 1).unflatten(0, (b, f))
-        if group is not None:
-            frames = all_gather(frames, group, dim=1)
-        next_motion = frames[:, -self.n_motion_frames:].float() / 127.5 - 1.0
-        phases.mark("vae_decode")
-        return frames, next_motion
+            # --- batched VAE decode -> uint8 (each rank its frames, gathered);
+            # motion carry from the uint8 ---
+            with profiling.span("hallo.clip.decode"):
+                pix = m.vae.decode(lat.flatten(0, 1))  # (B*F, 3, H, W)
+                pix = torch.clamp(pix.float() / 2 + 0.5, 0.0, 1.0)
+                frames = torch.round(pix * 255.0).to(torch.uint8)
+                frames = frames.permute(0, 2, 3, 1).unflatten(0, (b, f))
+                if group is not None:
+                    frames = all_gather(frames, group, dim=1)
+                next_motion = frames[:, -self.n_motion_frames:].float() / 127.5 - 1.0
+            mark("vae_decode")
+            return frames, next_motion
 
     @torch.inference_mode()
     def __call__(
@@ -421,7 +442,12 @@ class FaceAnimatePipeline:
         (`timings`, which synchronises at every mark, serialises this).
         `on_clip(frames_uint8)` receives each clip's (B, f', H, W, 3) frames,
         trimmed to `audio_length`. With `return_video=False` no frames are
-        kept and None is returned."""
+        kept and None is returned.
+
+        The waits are `inputs` (each host array copied to the card) and
+        `frames` (each clip's fetch); each `on_clip` call is the span
+        `hallo.emit`, the caller's own time."""
+        profiling.count("request")
         dev = self.models.device
         b, h, w, _ = ref_image.shape
         f, m_frames = self.clip_length, self.n_motion_frames
@@ -432,7 +458,8 @@ class FaceAnimatePipeline:
         num_clips = t_total // f
 
         def put(x):
-            return torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+            with profiling.wait("inputs"):
+                return torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
 
         ref = put(ref_image)
         face_emb_t, face_region_t = put(face_emb), put(face_region)
@@ -472,10 +499,12 @@ class FaceAnimatePipeline:
             take = min(f, limit - emitted)
             if take <= 0:
                 return
-            arr = fetch()[:, :take]
+            with profiling.wait("frames"):
+                arr = fetch()[:, :take]
             emitted += take
             if on_clip is not None:
-                on_clip(arr)
+                with profiling.span("hallo.emit"):
+                    on_clip(arr)
             if return_video:
                 outputs.append(arr.astype(np.float32) / 255.0)
 

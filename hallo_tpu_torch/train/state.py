@@ -33,6 +33,7 @@ import torch
 from hallo_tpu_torch.parallel import collectives
 from hallo_tpu_torch.parallel.mesh import Mesh, ZeroPlan, zero_plan
 from hallo_tpu_torch.parallel.tp import Plan
+from hallo_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +134,8 @@ class AdamW:
         upcast per tensor). Each operation runs over every tensor at once
         (`torch._foreach_*`). `norm_fn`: the global norm of the (accumulated)
         gradients, in the order of `params`, for the clip (`Zero.norm` over a
-        shard's pieces)."""
+        shard's pieces); the host waits for it (`profiling.wait`
+        "grad_norm")."""
         cfg = self.cfg
         k = cfg.gradient_accumulation_steps
         names = list(params)
@@ -148,7 +150,8 @@ class AdamW:
                 state["mini_step"] = n + 1
                 return
             gs = accs
-        norm = float(norm_fn(gs))
+        with profiling.wait("grad_norm"):
+            norm = float(norm_fn(gs))
         if not norm < cfg.max_grad_norm:
             gs = torch._foreach_div(gs, norm)
             torch._foreach_mul_(gs, cfg.max_grad_norm)

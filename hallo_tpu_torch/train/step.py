@@ -60,6 +60,7 @@ from hallo_tpu_torch.parallel import collectives
 from hallo_tpu_torch.parallel.mesh import Mesh
 from hallo_tpu_torch.pipelines.face_animate import HalloModels
 from hallo_tpu_torch.train.state import AdamW, TrainState, global_norm
+from hallo_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,7 +126,10 @@ def make_loss_fn(
 
     With a `mesh`, the batch is this rank's: its rows of the global batch and
     its frames of those (F = clip / seq), "noise" and "timesteps" included;
-    the loss is the mean over them."""
+    the loss is the mean over them.
+
+    Each batch array's copy to the card is the wait `batch`
+    (`profiling.wait`), each VAE encode the span `hallo.train.encode`."""
     dev = models.device
     dtype = models.denoising_net.conv_in.weight.dtype
     alphas = torch.tensor(schedule.alphas_cumprod(cfg.scheduler), device=dev)
@@ -139,12 +143,14 @@ def make_loss_fn(
     frozen = torch.no_grad if stage2 else contextlib.nullcontext
 
     def put(x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
-                               dtype=torch.float32, device=dev)
+        with profiling.wait("batch"):
+            return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                                   dtype=torch.float32, device=dev)
 
     def encode(px: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) pixels -> (N, 4, h, w) posterior-mean latents."""
-        return m.vae.encode_mean(px.permute(0, 3, 1, 2).to(dtype))
+        with profiling.span("hallo.train.encode"):
+            return m.vae.encode_mean(px.permute(0, 3, 1, 2).to(dtype))
 
     def loss_fn(batch: Dict[str, Any], gen: torch.Generator) -> torch.Tensor:
         pixels = put(batch["pixel_values"])
@@ -255,30 +261,49 @@ def make_train_step(
     With a `mesh`, the state is a `state.ShardedTrainState` (its `Zero` of
     this mesh: `Zero(mesh, trainable, opt).create(trainable)`), the batch
     this rank's (`make_loss_fn`), and the metrics those of the global batch,
-    the same on every rank."""
+    the same on every rank.
+
+    The step is the span `hallo.train.step`, holding `hallo.train.forward`
+    (the loss), `hallo.train.backward` (the gradients, the checkpoints'
+    replays included) and `hallo.train.optimizer` (the reduction under a
+    mesh, the waits `loss` and `grad_norm`, the clip, AdamW and the
+    write-back); the counters `train.step` and `train.skipped`."""
     loss_fn = make_loss_fn(models, cfg, mesh)
     names = list(trainable)
     params = [trainable[n] for n in names]
 
     def train_step(state: TrainState, batch: Dict[str, Any], gen: torch.Generator):
-        loss = loss_fn(batch, gen)
-        # a parameter that reaches no output of the loss gets zeros (jax.grad)
-        grads = {name: torch.zeros_like(p) if g is None else g for name, p, g in zip(
-            names, params, torch.autograd.grad(loss, params, allow_unused=True))}
-        if mesh is None:
-            loss_v, norm_v = loss.item(), global_norm(grads.values()).item()
-        else:
-            grads = state.zero.reduce(grads)
-            world = dist.get_world_size()
-            loss_v = (collectives.all_reduce_sum(loss.detach(), dist.group.WORLD) / world).item()
-            norm_v = state.zero.norm(list(grads.values())).item()
-        finite = bool(np.isfinite(loss_v) and np.isfinite(norm_v))
-        if finite:
-            if mesh is None:
-                opt.update(grads, state.opt_state, state.params)
-            else:
-                state.zero.update(state, grads)
-            state.write_to(trainable)
+        profiling.count("train.step")
+        with profiling.span("hallo.train.step"):
+            with profiling.span("hallo.train.forward"):
+                loss = loss_fn(batch, gen)
+            with profiling.span("hallo.train.backward"):
+                # a parameter that reaches no output of the loss gets zeros (jax.grad)
+                grads = {name: torch.zeros_like(p) if g is None else g for name, p, g in zip(
+                    names, params, torch.autograd.grad(loss, params, allow_unused=True))}
+            with profiling.span("hallo.train.optimizer"):
+                if mesh is None:
+                    with profiling.wait("loss"):
+                        loss_v = loss.item()
+                    with profiling.wait("grad_norm"):
+                        norm_v = global_norm(grads.values()).item()
+                else:
+                    grads = state.zero.reduce(grads)
+                    world = dist.get_world_size()
+                    with profiling.wait("loss"):
+                        loss_v = (collectives.all_reduce_sum(loss.detach(), dist.group.WORLD)
+                                  / world).item()
+                    with profiling.wait("grad_norm"):
+                        norm_v = state.zero.norm(list(grads.values())).item()
+                finite = bool(np.isfinite(loss_v) and np.isfinite(norm_v))
+                if finite:
+                    if mesh is None:
+                        opt.update(grads, state.opt_state, state.params)
+                    else:
+                        state.zero.update(state, grads)
+                    state.write_to(trainable)
+                else:
+                    profiling.count("train.skipped")
         state.step += 1
         return state, dict(loss=loss_v, grad_norm=norm_v, skipped=0.0 if finite else 1.0)
 

@@ -11,11 +11,26 @@ hallo_tpu/utils/profiling.py, without the TensorBoard writer).
   elementwise work, copies, NCCL and the rest.
 - `card_line()`: the card's name and power limit, written beside every
   figure taken on it.
+- `span(name)`, `wait(site)`, `count(name)`, `counters()`: the program's
+  own spans and counters. A span is a profiler range while a profiler
+  records (a host range of the trace, on the device trace's clock), and a
+  shared no-op context otherwise: one boolean check, no synchronisation,
+  no device value read. Nesting on a thread gives each span's parent. The
+  range is an operation's (`RecordFunctionFast`), not a user
+  annotation: the profiler gives a user annotation a device-side copy
+  over the kernels launched inside it, which a reader of events that lack
+  their activity type (PyTorch 2.11's) counts as device work. `wait(site)`
+  wraps a call that blocks the host until the card's queue drains: the
+  span `hallo.wait.<site>` and the counter `wait.<site>`. The counters are
+  always on (an integer add); `counters()` merges them with the ops'
+  launch tables (`launch.<kernel>`). The spans, the counters and the
+  metrics that read them are listed in PERF.md, section 3.
 - `StageTimer`, `MetricsLogger`: host stage timings and metrics.jsonl.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -59,6 +74,45 @@ DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the device-side spans of `record_function` ranges (c10d's "nccl:all_gather"
 # among them): they overlap the kernels they hold, so they are kept apart
 ANNOTATION_CAT = "gpu_user_annotation"
+
+
+_COUNTS: collections.Counter = collections.Counter()
+_NOOP = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A profiler range named `name` while a profiler records, else a
+    shared no-op context."""
+    if not _profiling():
+        return _NOOP
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name`."""
+    _COUNTS[name] += n
+
+
+def wait(site: str):
+    """The span `hallo.wait.<site>` around a call that blocks the host on
+    the card, counted under `wait.<site>`."""
+    _COUNTS["wait." + site] += 1
+    return span("hallo.wait." + site)
+
+
+def counters() -> collections.Counter:
+    """A snapshot of the counters, with each op's launch count as
+    `launch.<kernel>` (`ops/flash.py`, `temporal.py`, `layout.py`,
+    `winograd.py`, `parallel/collectives.py`)."""
+    from hallo_tpu_torch.ops import flash, layout, temporal, winograd
+    from hallo_tpu_torch.parallel import collectives
+
+    out = collections.Counter(_COUNTS)
+    for table in (flash.LAUNCHES, temporal.LAUNCHES, layout.LAUNCHES, winograd.LAUNCHES,
+                  collectives.LAUNCHES):
+        out.update({"launch." + k: v for k, v in table.items()})
+    return out
 
 
 def card_line() -> str:

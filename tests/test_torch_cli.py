@@ -101,6 +101,9 @@ def _check_video(run, out):
     assert set(timing["stages_s"]) == {"image_preprocess", "init_params", "load_weights",
                                        "audio_preprocess", "generate", "write_video"}
     assert timing["frames"] == 8 and timing["seconds_per_1s_output"] > 0
+    counts = timing["counters"]  # the process's, over every run so far
+    assert counts["request"] >= 1 and counts["wait.inputs"] >= 16 + 1
+    assert counts["denoiser.eval.full"] >= 1 and "launch.flash_fwd_packed" in counts
     return timing
 
 
